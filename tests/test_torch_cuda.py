@@ -16,6 +16,7 @@ import torch
 
 from tmgcn_torch.core.sparse import TemporalCOO
 from tmgcn_torch.kernels import spmm_cuda as tk
+from tmgcn_torch.ops import edge_readout as tro
 from tmgcn_torch.ops.spmm import spmm
 
 pytestmark = pytest.mark.cuda
@@ -102,3 +103,54 @@ def test_spmm_segment_path_is_deterministic_on_the_card(cuda_device):
     out_h, g_h = run("cpu")
     torch.testing.assert_close(out1, out_h, rtol=0, atol=ATOL)
     torch.testing.assert_close(g1, g_h, rtol=0, atol=ATOL)
+
+
+@pytest.mark.parametrize("F", [1, 2, 6, 128])
+@pytest.mark.parametrize("use_init", [False, True])
+def test_k2_matches_plain_and_repeats_bitwise(cuda_device, F, use_init):
+    p = _packing(20 + F, cuda_device, all_windows=not use_init)
+    g = torch.randn(p.n_chunks, F, p.chunk, device=cuda_device)
+
+    def init():
+        return torch.zeros(F, p.n_rows_out, device=cuda_device) if use_init else None
+
+    before = tk.windowed_segment_matmul_t.launches
+    out = tk.windowed_segment_matmul_t(p, g, init=init())
+    again = tk.windowed_segment_matmul_t(p, g, init=init())
+    torch.cuda.synchronize()
+    assert tk.windowed_segment_matmul_t.launches == before + 2
+    ref = tk.windowed_segment_matmul_t_reference(p, g, init=init())
+    scale = max(1.0, ref.abs().max().item())
+    torch.testing.assert_close(out, ref, rtol=0, atol=ATOL * scale)
+    assert torch.equal(out, again)
+    # The same sums as K1 in the same order: K1's output transposed, bitwise.
+    k1_init = torch.zeros(p.n_rows_out, F, device=cuda_device) if use_init else None
+    assert torch.equal(out, tk.windowed_segment_matmul(p, g.transpose(1, 2).contiguous(),
+                                                       init=k1_init).T)
+
+
+@pytest.mark.parametrize("lane_major", [False, True])
+def test_readout_plan_backward_on_the_card(cuda_device, lane_major):
+    """apply_readout through K1 / K2 against the same plan on the CPU."""
+    rng = np.random.default_rng(3)
+    T, N, E, F = 5, 700, 900, 6
+    edges = np.stack([np.sort(rng.integers(0, T, E)), rng.integers(0, N, E), rng.integers(0, N, E)])
+    Y = torch.from_numpy(rng.standard_normal((T, N, F)).astype(np.float32))
+    U = torch.from_numpy(rng.standard_normal((2 * F, 3)).astype(np.float32))
+    G = torch.from_numpy(rng.standard_normal((E, 3)).astype(np.float32))
+    plan = tro.make_readout_plan(edges, T, N, lane_major=lane_major)
+
+    def run(device):
+        Yd = Y.to(device).requires_grad_(True)
+        Ud = U.to(device).requires_grad_(True)
+        out = tro.apply_readout(plan.to(device), Yd, Ud)
+        (out * G.to(device)).sum().backward()
+        return out.detach().cpu(), Yd.grad.cpu(), Ud.grad.cpu()
+
+    kernel = tk.windowed_segment_matmul_t if lane_major else tk.windowed_segment_matmul
+    before = kernel.launches
+    on_card = run(cuda_device)
+    assert kernel.launches == before + 1
+    assert all(torch.equal(a, b) for a, b in zip(on_card, run(cuda_device)))
+    for a, b in zip(on_card, run("cpu")):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)

@@ -7,16 +7,17 @@ names, function names and public signatures follow ``tmgcn_tpu`` so each
 counterpart is found under the same path; the JAX package stays the
 reference the port is held against.
 
-Layout (the ported part so far: the 1-layer TM-GCN edge-classification
-path):
+Layout (the ported part so far: 1-layer TM-GCN and WD-GCN edge
+classification):
     core/        temporal sparse tensor container, M-matrix constructors
     ops/         SpMM, M-transform, degree features, edge readout
     kernels/     hand-written CUDA kernels (csrc/) and their wrappers
-    models/      TM-GCN
+    models/      TM-GCN, WD-GCN
     preprocess/  raw edge lists -> normalized temporal adjacency tensors
     tasks/       windows, adapters, metrics
     train/       training loop, losses, metric logging
     configs/     experiment presets and run assembly
+    utils/       epoch profiling and the large-graph scale benchmark
 
 Host arrays stay numpy until they move to the device once; entry points
 run on ``cuda`` unless the caller asks for the CPU.

@@ -3,6 +3,7 @@
     python -m tmgcn_torch.cli list
     python -m tmgcn_torch.cli run chess_tmgcn_cls --data-dir data/chess \
         --spmm-impl pallas --epochs 200 --out results_torch/
+    python -m tmgcn_torch.cli run chess_wdgcn_cls --data-dir data/chess --epochs 200
 
 ``run`` uses the card (``--device cuda``, the default) and fails if there
 is none; ``--device cpu`` runs the plain PyTorch path on the CPU. The JAX

@@ -1,5 +1,6 @@
 """Experiment assembly: config -> data -> adapter -> training run (port of
-tmgcn_tpu.configs.build, registry datasets and edge classification).
+tmgcn_tpu.configs.build, registry datasets and edge classification with
+1-layer TM-GCN or WD-GCN).
 
 Turns an :class:`ExperimentConfig` into a run, reproducing the reference
 experiment-script semantics: tmgcn consumes the M-transformed windows Ct with shifted
@@ -22,6 +23,7 @@ import torch
 from tmgcn_torch.configs.schema import ExperimentConfig
 from tmgcn_torch.core.sparse import TemporalCOO
 from tmgcn_torch.models.tmgcn import TMGCN
+from tmgcn_torch.models.wdgcn import WDGCN
 from tmgcn_torch.ops.degree import degree_features_np
 from tmgcn_torch.preprocess import datasets as dsets
 from tmgcn_torch.preprocess.matio import load_artifact, save_artifact
@@ -156,15 +158,26 @@ def build_data(
 
 
 def _check_ported(cfg: ExperimentConfig) -> None:
-    if cfg.task != "edge_cls" or cfg.method != "tmgcn" or cfg.n_layers != 1:
+    ported = cfg.task == "edge_cls" and (
+        (cfg.method == "tmgcn" and cfg.n_layers == 1) or cfg.method == "wdgcn"
+    )
+    if not ported:
         raise NotImplementedError(
-            f"only 1-layer TM-GCN edge classification is ported yet, not "
+            f"only 1-layer TM-GCN and WD-GCN edge classification are ported yet, not "
             f"{cfg.method} ({cfg.n_layers} layers) {cfg.task} (ROADMAP queue 1)"
         )
 
 
-def build_model(cfg: ExperimentConfig, n_slices: int, in_feat: int) -> TMGCN:
+def build_model(cfg: ExperimentConfig, n_slices: int, in_feat: int) -> TMGCN | WDGCN:
     _check_ported(cfg)
+    if cfg.method == "wdgcn":
+        return WDGCN(
+            n_slices=n_slices,
+            in_feat=in_feat,
+            hidden_feat=tuple(cfg.hidden_feat),
+            dtype=getattr(torch, cfg.dtype),
+            spmm_impl=cfg.spmm_impl,
+        )
     return TMGCN(
         n_slices=n_slices,
         in_feat=in_feat,
@@ -177,14 +190,21 @@ def build_model(cfg: ExperimentConfig, n_slices: int, in_feat: int) -> TMGCN:
     )
 
 
-def params_from_jax(params: dict[str, np.ndarray]) -> dict[str, torch.Tensor]:
-    """The JAX package's parameters (as numpy arrays) as the port's.
+def params_from_jax(tree: dict) -> dict:
+    """The JAX package's variables (arrays, in nested dicts) as the port's.
 
-    TMGCN keeps the same names and layouts on both sides — W (F0, F1) and
-    U (2·F1, C) — so each array is copied as it is, dtype kept, onto the
-    CPU; the training loop moves them to its device.
+    Takes a flat parameter dict, or a whole variable tree such as WD-GCN's
+    ``{"params": {"W", "lstm": {...}}, "buffers": {...}}``, and returns the
+    same tree of tensors. The ported models keep the JAX package's names
+    and layouts (TMGCN's W (F0, F1) and U (2·F1, C); WDGCN's W, per-gate
+    LSTM weights and frozen U, h_init, c_init), so each array is copied as
+    it is, dtype kept, onto the CPU; the training loop moves them to its
+    device.
     """
-    return {name: torch.tensor(np.asarray(value)) for name, value in params.items()}
+    return {
+        name: params_from_jax(value) if isinstance(value, dict) else torch.tensor(np.asarray(value))
+        for name, value in tree.items()
+    }
 
 
 def run_tag(trial: int, alpha: float | None) -> str:
@@ -239,7 +259,7 @@ def run_experiment(
     model = build_model(cfg, data.spec.s_train, in_feat)
     adapter = make_edge_adapter(
         model, data.adj, data.feats, {w: splits[w].edges for w in WINDOWS},
-        M=data.M, device=device,
+        M=data.M if cfg.method == "tmgcn" else None, device=device,
     )
     if device.type == "cuda":
         torch.cuda.synchronize(device)

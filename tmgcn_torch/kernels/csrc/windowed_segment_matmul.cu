@@ -1,31 +1,40 @@
-// K1: windowed segment matmul for Hopper (sm_90a).
+// K1 and K2: windowed segment matmul for Hopper (sm_90a).
 //
-// Replaces the TPU kernel `windowed_segment_matmul` / `_scatter_kernel` of
-// tmgcn_tpu/kernels/spmm_pallas.py:608-721. Same function, same packing
-// (tmgcn_torch/kernels/spmm_cuda.py, PackedSpmm):
+// K1 replaces the TPU kernel `windowed_segment_matmul` / `_scatter_kernel` of
+// tmgcn_tpu/kernels/spmm_pallas.py:608-721; K2 replaces its lane-major twin
+// `windowed_segment_matmul_t` / `_scatter_kernel_t` (:724-824). Both compute
+// the same sums over the same packing (tmgcn_torch/kernels/spmm_cuda.py,
+// PackedSpmm):
 //
 //   out[w*W + r, f] = sum over chunks j of window w, in chunk order, of
 //                     sum over entries c, in entry order, with rows[j,c] == r,
 //                     of vals[j,c] * gathered[j,c,f]
 //
-// What bounds it on this card: bytes. Every entry is read once (row id,
-// value and F gathered features, 8 + 4F bytes) and every output row is
+// and differ only in layout: K1 reads gathered (J, chunk, F) and writes
+// out (n_rows_out, F); K2 reads gathered_t (J, F, chunk) and writes
+// out (F, n_rows_out). One kernel template serves both (kLaneMajor).
+//
+// What bounds them on this card: bytes. Every entry is read once (row id,
+// value and F gathered features, 8 + 4F bytes) and every output element is
 // written once; the arithmetic is one multiply and one add per entry and
 // feature, far below the card's float32 rate.
 //
-// Design. The TPU kernel turns the scatter into a (W, C) one-hot product on
-// the matrix unit because the TPU has no fast vector scatter. Here one
-// thread block owns one output window (and one tile of FT features): it
-// walks that window's chunks in order (window_ptr gives the chunk range,
-// since the packer sorts chunks by window), stages each chunk's row ids,
-// values and gathered features in shared memory, and thread r accumulates
-// output row r in registers. Every output element is therefore summed by
-// one thread in entry order: bitwise deterministic, no float atomics, and
-// each output row written exactly once. Rows inside a window need not be
-// sorted (column-sorted packings permute them). All threads of a warp read
-// the same staged row id at once, so the scan over a chunk is a shared
-// memory broadcast; its cost grows with W * entries / 32 per window, which
-// is the first thing a faster version removes.
+// Design. The TPU kernels turn the scatter into a (W, C) one-hot product on
+// the matrix unit because the TPU has no fast vector scatter; K2 exists
+// there only because Mosaic pads an (rows, F~6) array 21x on its lanes.
+// Here one thread block owns one output window (and one tile of FT
+// features): it walks that window's chunks in order (window_ptr gives the
+// chunk range, since the packer sorts chunks by window), stages each
+// chunk's row ids, values and gathered features in shared memory, and
+// thread r accumulates output row r in registers. Every output element is
+// therefore summed by one thread in entry order: bitwise deterministic, no
+// float atomics, and each output element written exactly once. Rows inside
+// a window need not be sorted (column-sorted packings permute them). All
+// threads of a warp read the same staged row id at once, so the scan over a
+// chunk is a shared memory broadcast; its cost grows with W * slots / 32
+// per window, padding slots included, which is the first thing a faster
+// version removes. K2's loads of a chunk's (F, chunk) slab and its stores
+// to out[f * n_rows_out + w*W + r] are both coalesced across threads.
 //
 // write_empty == 0 (the caller passes a zero-initialised `init` as out):
 // windows with no chunk are not written. Otherwise they are written as 0.
@@ -34,13 +43,13 @@
 
 namespace {
 
-template <int FT>
+template <int FT, bool kLaneMajor>
 __global__ void windowed_segment_matmul_f32_kernel(
     const int* __restrict__ rows,        // (J, chunk) window-relative rows
     const float* __restrict__ vals,      // (J, chunk)
-    const float* __restrict__ gathered,  // (J, chunk, n_feat)
+    const float* __restrict__ gathered,  // K1 (J, chunk, n_feat); K2 (J, n_feat, chunk)
     const int* __restrict__ window_ptr,  // (n_windows + 1) chunk offsets
-    float* __restrict__ out,             // (n_windows * window, n_feat)
+    float* __restrict__ out,             // K1 (n_rows_out, n_feat); K2 (n_feat, n_rows_out)
     int chunk, int n_feat, int window, int write_empty) {
   extern __shared__ unsigned char smem_raw[];
   int* s_rows = reinterpret_cast<int*>(smem_raw);
@@ -66,10 +75,21 @@ __global__ void windowed_segment_matmul_f32_kernel(
       s_rows[c] = rows[base + c];
       s_vals[c] = vals[base + c];
     }
-    for (int i = threadIdx.x; i < chunk * FT; i += blockDim.x) {
-      const int c = i / FT;
-      const int k = i - c * FT;
-      s_g[i] = (k < nf) ? gathered[(base + c) * n_feat + f0 + k] : 0.0f;
+    if (kLaneMajor) {
+      // (n_feat, chunk) slab of chunk j: consecutive threads, consecutive c.
+      const size_t slab = static_cast<size_t>(j) * n_feat * chunk;
+      for (int i = threadIdx.x; i < chunk * FT; i += blockDim.x) {
+        const int k = i / chunk;
+        const int c = i - k * chunk;
+        s_g[c * FT + k] =
+            (k < nf) ? gathered[slab + static_cast<size_t>(f0 + k) * chunk + c] : 0.0f;
+      }
+    } else {
+      for (int i = threadIdx.x; i < chunk * FT; i += blockDim.x) {
+        const int c = i / FT;
+        const int k = i - c * FT;
+        s_g[i] = (k < nf) ? gathered[(base + c) * n_feat + f0 + k] : 0.0f;
+      }
     }
     __syncthreads();
     if (r < window) {
@@ -87,15 +107,24 @@ __global__ void windowed_segment_matmul_f32_kernel(
     }
   }
   if (r < window) {
-    float* o = out + (static_cast<size_t>(w) * window + r) * n_feat + f0;
+    const size_t row = static_cast<size_t>(w) * window + r;
+    if (kLaneMajor) {
+      const size_t n_rows_out = static_cast<size_t>(gridDim.x) * window;
 #pragma unroll
-    for (int k = 0; k < FT; ++k) {
-      if (k < nf) o[k] = acc[k];
+      for (int k = 0; k < FT; ++k) {
+        if (k < nf) out[static_cast<size_t>(f0 + k) * n_rows_out + row] = acc[k];
+      }
+    } else {
+      float* o = out + row * n_feat + f0;
+#pragma unroll
+      for (int k = 0; k < FT; ++k) {
+        if (k < nf) o[k] = acc[k];
+      }
     }
   }
 }
 
-template <int FT>
+template <int FT, bool kLaneMajor>
 cudaError_t launch(const int* rows, const float* vals, const float* gathered,
                    const int* window_ptr, float* out, int n_windows, int chunk,
                    int n_feat, int window, int write_empty, cudaStream_t stream) {
@@ -103,23 +132,21 @@ cudaError_t launch(const int* rows, const float* vals, const float* gathered,
                       static_cast<size_t>(chunk) * FT * sizeof(float);
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        windowed_segment_matmul_f32_kernel<FT>,
+        windowed_segment_matmul_f32_kernel<FT, kLaneMajor>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (err != cudaSuccess) return err;
   }
   const dim3 grid(n_windows, (n_feat + FT - 1) / FT);
   const int threads = ((window + 31) / 32) * 32;
-  windowed_segment_matmul_f32_kernel<FT><<<grid, threads, smem, stream>>>(
+  windowed_segment_matmul_f32_kernel<FT, kLaneMajor><<<grid, threads, smem, stream>>>(
       rows, vals, gathered, window_ptr, out, chunk, n_feat, window, write_empty);
   return cudaGetLastError();
 }
 
-}  // namespace
-
-extern "C" int tmgcn_windowed_segment_matmul_f32(
-    const void* rows, const void* vals, const void* gathered,
-    const void* window_ptr, void* out, int n_windows, int chunk, int n_feat,
-    int window, int write_empty, void* stream) {
+template <bool kLaneMajor>
+int dispatch(const void* rows, const void* vals, const void* gathered,
+             const void* window_ptr, void* out, int n_windows, int chunk, int n_feat,
+             int window, int write_empty, void* stream) {
   if (n_windows <= 0) return cudaSuccess;
   if (chunk <= 0 || n_feat <= 0 || window <= 0 || window > 1024)
     return cudaErrorInvalidValue;
@@ -129,8 +156,31 @@ extern "C" int tmgcn_windowed_segment_matmul_f32(
   const int* p = static_cast<const int*>(window_ptr);
   float* o = static_cast<float*>(out);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (n_feat == 1) return launch<1>(r, v, g, p, o, n_windows, chunk, n_feat, window, write_empty, s);
-  if (n_feat == 2) return launch<2>(r, v, g, p, o, n_windows, chunk, n_feat, window, write_empty, s);
-  if (n_feat <= 4) return launch<4>(r, v, g, p, o, n_windows, chunk, n_feat, window, write_empty, s);
-  return launch<8>(r, v, g, p, o, n_windows, chunk, n_feat, window, write_empty, s);
+  if (n_feat == 1)
+    return launch<1, kLaneMajor>(r, v, g, p, o, n_windows, chunk, n_feat, window, write_empty, s);
+  if (n_feat == 2)
+    return launch<2, kLaneMajor>(r, v, g, p, o, n_windows, chunk, n_feat, window, write_empty, s);
+  if (n_feat <= 4)
+    return launch<4, kLaneMajor>(r, v, g, p, o, n_windows, chunk, n_feat, window, write_empty, s);
+  return launch<8, kLaneMajor>(r, v, g, p, o, n_windows, chunk, n_feat, window, write_empty, s);
+}
+
+}  // namespace
+
+// K1: gathered (J, chunk, n_feat) -> out (n_windows * window, n_feat).
+extern "C" int tmgcn_windowed_segment_matmul_f32(
+    const void* rows, const void* vals, const void* gathered,
+    const void* window_ptr, void* out, int n_windows, int chunk, int n_feat,
+    int window, int write_empty, void* stream) {
+  return dispatch<false>(rows, vals, gathered, window_ptr, out, n_windows, chunk,
+                         n_feat, window, write_empty, stream);
+}
+
+// K2: gathered_t (J, n_feat, chunk) -> out (n_feat, n_windows * window).
+extern "C" int tmgcn_windowed_segment_matmul_t_f32(
+    const void* rows, const void* vals, const void* gathered_t,
+    const void* window_ptr, void* out, int n_windows, int chunk, int n_feat,
+    int window, int write_empty, void* stream) {
+  return dispatch<true>(rows, vals, gathered_t, window_ptr, out, n_windows, chunk,
+                        n_feat, window, write_empty, stream);
 }

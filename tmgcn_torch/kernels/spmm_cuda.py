@@ -22,9 +22,16 @@ raises where it cannot; it takes the plain PyTorch version
 operator's ``torch.autograd.Function`` runs the backward dX = Aᵀ dY as the
 same kernel on the transposed packing.
 
-Ported so far: the exact float32 tier of K1. The ``fast`` and bf16-gather
-tiers, the lane-major K2 and the tile-dedup K3 are still to port
-(ROADMAP queue 2); asking for them raises NotImplementedError.
+K2, ``windowed_segment_matmul_t``, is the same sums with the layout
+transposed — (J, F, C) chunks in, (F, n_rows_out) out — and replaces the
+Pallas kernel ``windowed_segment_matmul_t`` (body ``_scatter_kernel_t``,
+tmgcn_tpu/kernels/spmm_pallas.py:724-824). Its one user is the
+``ReadoutPlan`` backward past ``LANE_MAJOR_BYTES`` (ops/edge_readout.py).
+Its plain version is ``windowed_segment_matmul_t_reference``.
+
+Ported so far: the exact float32 tier of K1, and K2. The ``fast`` and
+bf16-gather tiers of K1 and the tile-dedup K3 are still to port (ROADMAP
+queue 2); asking for them raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -252,9 +259,28 @@ def windowed_segment_matmul_reference(
     return init
 
 
+def windowed_segment_matmul_t_reference(
+    packed: PackedSpmm,
+    gathered_t: torch.Tensor,
+    out_dtype: torch.dtype | None = None,
+    init: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """Plain PyTorch version of K2: (J, F, C) gathered_t -> (F, n_rows_out).
+
+    The sums of ``windowed_segment_matmul_reference`` on the transposed
+    layout. ``init`` as there: an (F, n_rows_out) tensor written in place
+    (visited windows only, through its transposed view) and returned.
+    """
+    out = windowed_segment_matmul_reference(
+        packed, gathered_t.transpose(1, 2), out_dtype, None if init is None else init.T
+    )
+    return out.T.contiguous() if init is None else init
+
+
 @functools.cache
-def _kernel():
-    fn = load_library("windowed_segment_matmul.cu").tmgcn_windowed_segment_matmul_f32
+def _kernel(symbol: str):
+    """The ctypes entry point of K1 or K2, with its argument types."""
+    fn = getattr(load_library("windowed_segment_matmul.cu"), symbol)
     fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
@@ -287,20 +313,73 @@ def windowed_segment_matmul(
         return windowed_segment_matmul_reference(packed, gathered, out_dtype, init)
     if gathered.device.type != "cuda":
         raise ValueError(f"no kernel for device {gathered.device}")
+    F = gathered.shape[-1]
+    J, C = packed.rows.shape
+    if gathered.shape != (J, C, F) or F < 1:
+        raise ValueError(f"gathered must be ({J}, {C}, F>=1), got {tuple(gathered.shape)}")
+    out = _launch(
+        "tmgcn_windowed_segment_matmul_f32", packed, gathered, F, (packed.n_rows_out, F),
+        out_dtype, init,
+    )
+    windowed_segment_matmul.launches += 1
+    return out
+
+
+windowed_segment_matmul.launches = 0  # kernel launches, for run accounting
+
+
+def windowed_segment_matmul_t(
+    packed: PackedSpmm,
+    gathered_t: torch.Tensor,
+    out_dtype: torch.dtype | None = None,
+    init: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """K2: (J, F, C) transposed chunks -> (F, n_rows_out) window segment sums.
+
+    The lane-major twin of ``windowed_segment_matmul``: the same sums, the
+    same ``init`` semantics (an (F, n_rows_out) zero tensor used as the
+    output itself; windows without a chunk are not written), the same
+    device policy (the kernel on a CUDA tensor, the plain version on a CPU
+    tensor, an error otherwise).
+    """
+    if gathered_t.device.type == "cpu":
+        return windowed_segment_matmul_t_reference(packed, gathered_t, out_dtype, init)
+    if gathered_t.device.type != "cuda":
+        raise ValueError(f"no kernel for device {gathered_t.device}")
+    J, C = packed.rows.shape
+    F = gathered_t.shape[1] if gathered_t.dim() == 3 else 0
+    if gathered_t.shape != (J, F, C) or F < 1:
+        raise ValueError(f"gathered_t must be ({J}, F>=1, {C}), got {tuple(gathered_t.shape)}")
+    out = _launch(
+        "tmgcn_windowed_segment_matmul_t_f32", packed, gathered_t, F, (F, packed.n_rows_out),
+        out_dtype, init,
+    )
+    windowed_segment_matmul_t.launches += 1
+    return out
+
+
+windowed_segment_matmul_t.launches = 0  # kernel launches, for run accounting
+
+
+def _launch(
+    symbol: str,
+    packed: PackedSpmm,
+    gathered: torch.Tensor,
+    F: int,
+    out_shape: tuple[int, int],
+    out_dtype: torch.dtype | None,
+    init: torch.Tensor | None,
+) -> torch.Tensor:
+    """Check the arguments of K1 or K2 and launch it on the current stream."""
     out_dtype = gathered.dtype if out_dtype is None else out_dtype
     if gathered.dtype != torch.float32 or out_dtype != torch.float32:
         raise NotImplementedError(
-            "the CUDA K1 takes float32 in and out; the bf16-gather tier is "
+            "the CUDA kernels take float32 in and out; the bf16-gather tier is "
             "not ported yet (ROADMAP queue 2, K1)"
         )
-    J, C = packed.rows.shape
-    F = gathered.shape[-1]
-    W = packed.window
     device = gathered.device
-    if gathered.shape != (J, C, F) or F < 1:
-        raise ValueError(f"gathered must be ({J}, {C}, F>=1), got {tuple(gathered.shape)}")
-    if W > MAX_WINDOW:
-        raise ValueError(f"window {W} > {MAX_WINDOW}")
+    if packed.window > MAX_WINDOW:
+        raise ValueError(f"window {packed.window} > {MAX_WINDOW}")
     _check_cuda("gathered", gathered, torch.float32, device)
     _check_cuda("packed.rows", packed.rows, torch.int32, device)
     _check_cuda("packed.vals", packed.vals, torch.float32, device)
@@ -309,34 +388,30 @@ def windowed_segment_matmul(
         raise ValueError("packed.window_ptr must have n_windows + 1 entries")
     if init is not None:
         _check_cuda("init", init, torch.float32, device)
-        if init.shape != (packed.n_rows_out, F):
-            raise ValueError(f"init must be ({packed.n_rows_out}, {F})")
+        if tuple(init.shape) != out_shape:
+            raise ValueError(f"init must be {out_shape}")
         out = init
     else:
-        out = torch.empty((packed.n_rows_out, F), dtype=torch.float32, device=device)
+        out = torch.empty(out_shape, dtype=torch.float32, device=device)
     if packed.n_windows == 0:
         return out
     with torch.cuda.device(device):
-        err = _kernel()(
+        err = _kernel(symbol)(
             packed.rows.data_ptr(),
             packed.vals.data_ptr(),
             gathered.data_ptr(),
             packed.window_ptr.data_ptr(),
             out.data_ptr(),
             packed.n_windows,
-            C,
+            packed.chunk,
             F,
-            W,
+            packed.window,
             0 if init is not None else 1,
             torch.cuda.current_stream(device).cuda_stream,
         )
-    windowed_segment_matmul.launches += 1
     if err != 0:
-        raise RuntimeError(f"windowed_segment_matmul launch failed: CUDA error {err}")
+        raise RuntimeError(f"{symbol} launch failed: CUDA error {err}")
     return out
-
-
-windowed_segment_matmul.launches = 0  # kernel launches, for run accounting
 
 
 def _flat_fwd_impl(n_out: int, packed: PackedSpmm, flat: torch.Tensor) -> torch.Tensor:

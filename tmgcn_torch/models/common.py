@@ -3,8 +3,10 @@
 Models are plain functional modules, as in the JAX package: a config
 dataclass with ``init(generator) -> variables`` and
 ``apply(variables, ...) -> output``. ``variables`` is
-``{"params": {name: tensor}, "buffers": {name: tensor}}``; the optimizer
-updates only ``params``.
+``{"params": {...}, "buffers": {...}}``, dicts of tensors that may nest
+(WD-GCN's ``params["lstm"]``); the optimizer updates every tensor of
+``params`` and none of ``buffers`` (WD-GCN's frozen readout U and LSTM
+initial states).
 """
 
 from __future__ import annotations

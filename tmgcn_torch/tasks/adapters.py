@@ -1,5 +1,5 @@
 """Model-family adapters: one calling convention across architectures
-(port of tmgcn_tpu.tasks.adapters, the 1-layer TM-GCN branch).
+(port of tmgcn_tpu.tasks.adapters: the 1-layer TM-GCN and WD-GCN branches).
 
 Adapters prepare per-window data bundles on the device, once, and expose:
 
@@ -12,6 +12,11 @@ Ct ⊛ (M ×₁ X) is computed once per distinct window at build time (through
 the SpMM impl the model names: K1 for ``"pallas"``) and only the per-edge
 endpoint rows of it are kept, so a training epoch is two small matmuls —
 no gather in the forward, no scatter in the backward.
+
+WD-GCN caches its propagation AX once per window (transposed to
+(T, F0, N)) and runs the LSTM and the edge readout every epoch; the
+readout's backward goes through the bundle's ``ReadoutPlan`` (K1, or K2
+past ``LANE_MAJOR_BYTES``) where one is built.
 """
 
 from __future__ import annotations
@@ -24,6 +29,8 @@ import torch
 
 from tmgcn_torch.core.sparse import TemporalCOO
 from tmgcn_torch.models.tmgcn import TMGCN
+from tmgcn_torch.models.wdgcn import WDGCN
+from tmgcn_torch.ops.edge_readout import make_readout_plan, readout_operator
 
 WINDOWS = ("train", "val", "test")
 
@@ -59,6 +66,13 @@ def _fast_edge_logits(W, U, bundle: dict, dtype: torch.dtype, readout: str = "co
     return src @ (W @ U[:F1]) + trg @ (W @ U[F1:])
 
 
+def _readout_fn(bundle: dict):
+    """Bind a bundle's ReadoutPlan (if any) into an op(Y, U) callable."""
+    if "readout" not in bundle:
+        return None
+    return readout_operator(bundle["readout"])
+
+
 @dataclasses.dataclass
 class ModelAdapter:
     """Uniform (variables, bundle, carry) -> (output, carry) interface."""
@@ -84,11 +98,14 @@ def _prepare_bundles(
     drop_last_slice: bool,
     spmm_operator: str | None,
     device: str | torch.device,
+    readout: bool,
 ) -> dict[str, dict]:
     """Per-window bundles on ``device``, moved there once.
 
     Windows that share the same adjacency/features/edges objects get one
-    bundle (one device copy).
+    bundle (one device copy). ``readout``: the model gathers endpoint rows
+    per step, so the bundles carry a ReadoutPlan where the JAX package
+    builds one.
     """
     bundles = {}
     seen: dict[tuple, str] = {}
@@ -105,6 +122,7 @@ def _prepare_bundles(
         if drop_last_slice:
             A = A.slice_window(0, A.n_slices - 1)
             X = X[:-1]
+        n_slices, n_nodes = A.n_slices, A.n_nodes
         if spmm_operator == "pallas":
             # Prepack K1's chunk stream and its transpose once, host-side.
             from tmgcn_torch.kernels.spmm_cuda import make_operator
@@ -123,6 +141,15 @@ def _prepare_bundles(
             bundle["edges"] = torch.as_tensor(
                 np.asarray(edges[w]), dtype=torch.long, device=device
             )
+            # The readout backward through the windowed kernels. The JAX
+            # package builds the plan on the TPU for every edge model and
+            # elsewhere only for operator-backed configs; the port reads
+            # "on the TPU" as "on a CUDA device", and skips it for the
+            # 1-layer fast path, whose epoch never gathers.
+            if readout and (spmm_operator is not None or device.type == "cuda"):
+                bundle["readout"] = make_readout_plan(
+                    np.asarray(edges[w]), n_slices, n_nodes
+                ).to(device)
         if M is not None:
             Mw = np.asarray(M)
             if drop_last_slice:
@@ -155,28 +182,56 @@ def make_edge_adapter(
     """Adapter for edge-output models on prepared windows.
 
     Args:
-        model: a 1-layer condensed TMGCN (the only branch ported so far).
-        adj: per-window adjacency (Ct for TM-GCN).
+        model: a 1-layer condensed TMGCN or a WDGCN (the branches ported
+            so far).
+        adj: per-window adjacency (Ct for TM-GCN, C for WD-GCN).
         feats: per-window (T, N, F) features.
         edges: per-window (3, E) model-input edges.
-        M: mixing matrix.
+        M: mixing matrix (TM-GCN only).
         drop_last_slice: link-prediction convention — the model consumes
             slices [0, T-1) and M[:-1, :-1].
         l2_stream_chunks: TMGCN2 only; not ported yet.
         device: where the bundles live and the model runs (no default:
             the entry points resolve it, cuda unless asked otherwise).
     """
-    if not isinstance(model, TMGCN) or not model.condensed_W or model.use_Minv:
+    tmgcn1 = isinstance(model, TMGCN) and model.condensed_W and not model.use_Minv
+    if not (tmgcn1 or isinstance(model, WDGCN)):
         raise NotImplementedError(
-            "only the 1-layer condensed TM-GCN adapter is ported yet "
-            "(ROADMAP queue 1, items 5-10)"
+            "only the 1-layer condensed TM-GCN and the WD-GCN adapters are ported yet "
+            "(ROADMAP queue 1, items 5-9)"
         )
     if l2_stream_chunks:
         raise NotImplementedError("streamed layer 2 is not ported yet (ROADMAP queue 1, item 12)")
     impl = model.spmm_impl
     spmm_operator = impl if impl in OPERATOR_IMPLS else None
     device = torch.device(device)
-    bundles = _prepare_bundles(adj, feats, edges, M, drop_last_slice, spmm_operator, device)
+    bundles = _prepare_bundles(
+        adj, feats, edges, M, drop_last_slice, spmm_operator, device, readout=not tmgcn1
+    )
+
+    def init(generator):
+        return model.init(generator, device)
+
+    if isinstance(model, WDGCN):
+        # The cached propagation, transposed to (T, F0, N): the forward
+        # then runs on the (F, N) layout (models/wdgcn.lstm_scan_t).
+        with torch.no_grad():
+            for b in _unique_bundles(bundles):
+                b["cached"] = model.propagate(b["adj"], b["X"])
+                b["cached_t"] = b["cached"].transpose(1, 2).contiguous()
+
+        def apply(variables, bundle, carry):
+            out = model.apply(
+                variables,
+                bundle["adj"],
+                bundle["X"],
+                bundle["edges"],
+                readout_op=_readout_fn(bundle),
+                AXt=bundle["cached_t"],
+            )
+            return out, carry
+
+        return ModelAdapter(init, apply, bundles, device)
 
     # Cache the parameter-independent first-layer propagation, as the
     # reference does at model init (embedding_help_functions.py:195), then
@@ -185,9 +240,6 @@ def make_edge_adapter(
         for b in _unique_bundles(bundles):
             b["cached"] = model.propagate(b["adj"], b["X"], b["M"])
             _cache_edge_rows(b, model.dtype)
-
-    def init(generator):
-        return model.init(generator, device)
 
     def apply(variables, bundle, carry):
         return _fast_edge_logits(

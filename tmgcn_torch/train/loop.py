@@ -86,6 +86,21 @@ def _optimizer(cfg: TrainConfig, params: list[torch.Tensor]) -> _Optimizer:
     return _Optimizer(cfg, params)
 
 
+def _tree_map(fn, tree: dict) -> dict:
+    """fn on every tensor of a nested dict; the same nesting back."""
+    return {k: _tree_map(fn, v) if isinstance(v, dict) else fn(v) for k, v in tree.items()}
+
+
+def _tree_leaves(tree: dict) -> list[torch.Tensor]:
+    """Every tensor of a nested dict, in key order at each level (as optax
+    flattens a dict pytree)."""
+    out = []
+    for k in sorted(tree):
+        v = tree[k]
+        out.extend(_tree_leaves(v) if isinstance(v, dict) else [v])
+    return out
+
+
 def _clip_by_global_norm(grads: list[torch.Tensor], max_norm: float) -> list[torch.Tensor]:
     """optax.clip_by_global_norm."""
     norm = torch.sqrt(sum(torch.sum(g * g) for g in grads))
@@ -121,7 +136,9 @@ def run_edge_classification(
 
     ``variables`` (e.g. parameters carried over from the JAX package with
     ``configs.build.params_from_jax``) are copied to the adapter's device;
-    otherwise they are drawn from ``generator`` (seed 0 if None).
+    otherwise they are drawn from ``generator`` (seed 0 if None). Params
+    and buffers may nest (WD-GCN's ``lstm``): every leaf of ``params`` is
+    trained, and the returned variables have the same tree.
     """
     if checkpointer is not None:
         raise NotImplementedError("checkpoints are not ported yet (ROADMAP queue 1, item 13)")
@@ -132,15 +149,14 @@ def run_edge_classification(
         variables = adapter.init(
             generator if generator is not None else torch.Generator().manual_seed(0)
         )
-    params = {
-        k: v.detach().to(device).clone().requires_grad_(True)
-        for k, v in variables["params"].items()
-    }
-    buffers = {k: v.to(device) for k, v in variables["buffers"].items()}
+    params = _tree_map(
+        lambda v: v.detach().to(device).clone().requires_grad_(True), variables["params"]
+    )
+    buffers = _tree_map(lambda v: v.to(device), variables["buffers"])
     cw = torch.as_tensor(class_weights, dtype=torch.float64, device=device)
     tgt_train = torch.as_tensor(splits["train"].target, device=device)
     bundle_train = adapter.bundles["train"]
-    opt = _optimizer(cfg, list(params.values()))
+    opt = _optimizer(cfg, _tree_leaves(params))
 
     def sgd_step() -> torch.Tensor:
         """One update; returns [loss, tp, fp, fn] of its pre-update logits."""
@@ -191,5 +207,5 @@ def run_edge_classification(
                 results[ep + i] = [p_tr, r_tr, f1_tr, loss_i, *val_stats, *test_stats]
             ep += k
 
-    params = {k: v.detach() for k, v in params.items()}
+    params = _tree_map(torch.Tensor.detach, params)
     return results, {"params": params, "buffers": buffers}

@@ -1,9 +1,11 @@
-"""Where the time of a warm chess_tmgcn_cls epoch goes, on the card.
+"""Where the time of a warm chess epoch goes, on the card.
 
-    python -m tmgcn_torch.utils.profile_slice
+    python -m tmgcn_torch.utils.profile_slice [PRESET]
 
-Builds the slice's adapter once (spmm_impl="pallas", device cuda, data in
-data/chess), warms the loop up with one run, then:
+PRESET is chess_tmgcn_cls (the default; run with spmm_impl="pallas") or
+chess_wdgcn_cls (the preset's own spmm_impl). Builds the slice's adapter
+once (device cuda, data in data/chess), warms the loop up with one run,
+then:
 
   * times REPEATS warm runs of EPOCHS epochs each (two evaluation epochs):
     median, quartiles and extremes of ms per epoch;
@@ -20,6 +22,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import subprocess
+import sys
 import time
 
 import numpy as np
@@ -35,21 +38,27 @@ DATA_DIR = "data/chess"
 EPOCHS = 200
 REPEATS = 11
 TRACED_EPOCHS = 21
+PRESETS = {"chess_tmgcn_cls": {"spmm_impl": "pallas"}, "chess_wdgcn_cls": {}}
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    argv = sys.argv[1:] if argv is None else argv
+    preset = argv[0] if argv else "chess_tmgcn_cls"
+    if preset not in PRESETS:
+        raise SystemExit(f"profile_slice profiles one of {sorted(PRESETS)}, not {preset!r}")
     if not torch.cuda.is_available():
         raise SystemExit("profile_slice needs an NVIDIA card")
     dev = torch.device("cuda")
 
-    cfg = dataclasses.replace(get_preset("chess_tmgcn_cls"), spmm_impl="pallas")
+    cfg = dataclasses.replace(get_preset(preset), **PRESETS[preset])
     data = build_data(cfg, data_dir=DATA_DIR)
     splits = split_edges_classification(
         data.edge_index, data.edge_values, data.spec, n_classes=cfg.n_classes
     )
     model = build_model(cfg, data.spec.s_train, data.feats["train"].shape[-1])
     adapter = make_edge_adapter(
-        model, data.adj, data.feats, {w: splits[w].edges for w in WINDOWS}, M=data.M, device=dev
+        model, data.adj, data.feats, {w: splits[w].edges for w in WINDOWS},
+        M=data.M if cfg.method == "tmgcn" else None, device=dev,
     )
     cw = np.array([1 / 3, 1 / 3, 1 / 3])
     gen = torch.Generator().manual_seed(cfg.seed)
@@ -88,6 +97,8 @@ def main() -> int:
     device_us = sum(e.self_device_time_total for e in on_device)
     top = sorted(on_device, key=lambda e: -e.self_device_time_total)[:8]
     result = {
+        "preset": preset,
+        "spmm_impl": cfg.spmm_impl,
         "card": subprocess.run(
             ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
             capture_output=True, text=True, timeout=60, check=True,
@@ -105,6 +116,10 @@ def main() -> int:
         "profiled_wall_ms": wall_us / 1e3,
         "device_ms_per_profiled_epoch": device_us / 1e3 / TRACED_EPOCHS,
         "device_busy_share": device_us / wall_us,
+        # Host-side kernel launches (every kernel, library or ours).
+        "launch_calls_per_profiled_epoch": sum(
+            e.count for e in avg if e.key in ("cudaLaunchKernel", "cuLaunchKernel", "cuLaunchKernelEx")
+        ) / TRACED_EPOCHS,
         "device_ms_by_kernel": {e.key[:80]: e.self_device_time_total / 1e3 for e in top},
     }
     print(json.dumps(result))

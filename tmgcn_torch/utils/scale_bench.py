@@ -1,0 +1,246 @@
+"""Production-scale single-card benchmark: a large synthetic dynamic graph.
+
+The port's counterpart of tools/bench_scale.py: the same power-law
+temporal graph and labelled edges from the same seeds (its own numpy copy
+of ``build_graph`` / ``build_inputs``), trained with the port's adapters,
+loss and optimizer, full-batch SGD (lr 0.01, momentum 0.9, class weights
+[0.9, 0.1]):
+
+    python -m tmgcn_torch.utils.scale_bench [--nodes 500000] [--slices 64]
+        [--nnz-per-slice 2000000] [--edges 1000000] [--families tmgcn1,tmgcn2]
+        [--out FILE] [--device cuda]
+
+Prints ms/epoch and labelled edges/s for each family, then one JSON line.
+Families ported: ``tmgcn1`` (1-layer TM-GCN, hidden (6, 2)) and ``wdgcn``
+(WD-GCN, hidden (6, 2)). At 500k nodes x 64 slices the WD-GCN readout
+plan's T·N = 32M rows pass ``LANE_MAJOR_BYTES``, so every training step
+runs the readout backward through K2. ``tmgcn2``, ``evolvegcn`` and
+``--l2-stream`` raise NotImplementedError naming their ROADMAP item.
+
+The flags and their defaults are the tool's own, except ``--out``: the
+tool writes results/scale_bench.json, where the JAX package keeps its
+history, so here the JSON file is written only when ``--out`` names one.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+from tmgcn_torch.core.mmatrix import make_m_matrix
+from tmgcn_torch.core.sparse import TemporalCOO
+from tmgcn_torch.ops.degree import degree_features_np
+
+# Families of tools/bench_scale.py not ported yet, and their ROADMAP items.
+_NOT_PORTED = {
+    "tmgcn2": "queue 1, item 5",
+    "evolvegcn": "queue 1, item 9",
+}
+_NAMES = {"tmgcn1": "one_layer", "tmgcn2": "two_layer", "evolvegcn": "evolvegcn",
+          "wdgcn": "wdgcn"}
+
+
+def build_graph(n_nodes: int, n_slices: int, nnz_per_slice: int, seed: int = 0) -> TemporalCOO:
+    """Power-law temporal adjacency, row-sorted per slice, scaled values."""
+    rng = np.random.default_rng(seed)
+    pop = rng.pareto(1.3, n_nodes) + 1.0
+    p = pop / pop.sum()
+    slices = []
+    for _ in range(n_slices):
+        r = rng.choice(n_nodes, nnz_per_slice, p=p).astype(np.int64)
+        c = rng.choice(n_nodes, nnz_per_slice, p=p).astype(np.int64)
+        order = np.argsort(r, kind="stable")
+        r, c = r[order], c[order]
+        # An approximate degree normalisation keeps activations bounded;
+        # the bench measures throughput, not accuracy.
+        v = np.full(len(r), 1.0 / np.sqrt(nnz_per_slice / n_nodes), np.float32)
+        slices.append((r, c, v))
+    return TemporalCOO.from_slices(slices, n_nodes, dtype=np.float32)
+
+
+def build_inputs(n_nodes, n_slices, nnz_per_slice, n_edges, band, seed=1):
+    """(A, M, X, edges, tgt, cw): the tool's workload, host-side numpy."""
+    A = build_graph(n_nodes, n_slices, nnz_per_slice)
+    M = make_m_matrix(n_slices, band).astype(np.float32)
+    X = degree_features_np(A).astype(np.float32)
+    rng = np.random.default_rng(seed)
+    edges = np.stack([
+        rng.integers(0, n_slices, n_edges),
+        rng.integers(0, n_nodes, n_edges),
+        rng.integers(0, n_nodes, n_edges),
+    ]).astype(np.int64)
+    tgt = rng.integers(0, 2, n_edges)
+    cw = np.array([0.9, 0.1], np.float32)
+    return A, M, X, edges, tgt, cw
+
+
+def _check_family(fam: str) -> None:
+    if fam in _NOT_PORTED:
+        raise NotImplementedError(
+            f"scale family {fam!r} is not ported yet (ROADMAP {_NOT_PORTED[fam]})"
+        )
+    if fam not in _NAMES:
+        raise ValueError(f"unknown family {fam!r}")
+
+
+def build_model(fam: str, n_slices: int, f_in: int, M: np.ndarray):
+    """(model, M for the adapter) of one family."""
+    from tmgcn_torch.models.tmgcn import TMGCN
+    from tmgcn_torch.models.wdgcn import WDGCN
+
+    _check_family(fam)
+    if fam == "tmgcn1":
+        return TMGCN(n_slices=n_slices, in_feat=f_in, hidden_feat=(6, 2)), M
+    if fam == "wdgcn":
+        return WDGCN(n_slices=n_slices, in_feat=f_in, hidden_feat=(6, 2)), None
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def timed_epochs(adapter, tgt: torch.Tensor, cw: torch.Tensor, n_steps: int):
+    """n_steps SGD steps twice: the first run pays the first launches, the
+    second is timed. Returns (seconds per step, first-run seconds, every
+    step's loss as numpy)."""
+    from tmgcn_torch.train.loop import TrainConfig, _optimizer, _tree_leaves
+    from tmgcn_torch.train.losses import weighted_cross_entropy
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    device = adapter.device
+    variables = adapter.init(torch.Generator().manual_seed(0))
+    params = variables["params"]
+    for leaf in _tree_leaves(params):
+        leaf.requires_grad_(True)
+    buffers = variables["buffers"]
+    opt = _optimizer(TrainConfig(lr=0.01, momentum=0.9), _tree_leaves(params))
+    bundle = adapter.bundles["train"]
+
+    def run():
+        losses = []
+        for _ in range(n_steps):
+            opt.zero_grad()
+            out, _ = adapter.apply({"params": params, "buffers": buffers}, bundle, ())
+            loss = weighted_cross_entropy(out, tgt, cw)
+            loss.backward()
+            opt.step()
+            losses.append(loss.detach())
+        return torch.stack(losses)
+
+    _sync(device)
+    t0 = time.perf_counter()
+    first = run().cpu().numpy()
+    t_first = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    timed = run().cpu().numpy()
+    dt = (time.perf_counter() - t0) / n_steps
+    return dt, t_first, np.concatenate([first, timed])
+
+
+def run_family(fam: str, inputs, n_timed: int, device: str | torch.device) -> dict:
+    """Build one family's adapter on the shared inputs and time its epochs.
+
+    Returns the tool's keys for the family (build seconds, ms/epoch,
+    edges/s) and ``steps`` / ``losses`` of every training step run.
+    """
+    from tmgcn_torch.tasks.adapters import WINDOWS, make_edge_adapter
+
+    device = torch.device(device)
+    A, M, X, edges, tgt_np, cw_np = inputs
+    key = _NAMES[fam]
+    t0 = time.perf_counter()
+    model, Mw = build_model(fam, A.n_slices, X.shape[-1], M)
+    # All three windows share the same objects: the adapter builds one
+    # bundle (one device copy) for them.
+    adapter = make_edge_adapter(
+        model, {w: A for w in WINDOWS}, {w: X for w in WINDOWS},
+        {w: edges for w in WINDOWS}, M=Mw, device=device,
+    )
+    _sync(device)
+    build_s = time.perf_counter() - t0
+    n = n_timed if fam == "tmgcn1" else max(n_timed // 4, 3)
+    tgt = torch.as_tensor(tgt_np, device=device)
+    cw = torch.as_tensor(cw_np, device=device)
+    dt, t_first, losses = timed_epochs(adapter, tgt, cw, n)
+    n_edges = edges.shape[1]
+    return {
+        f"{key}_build_s": build_s,
+        f"{key}_first_run_s": t_first,
+        f"{key}_ms_per_epoch": dt * 1e3,
+        f"{key}_edges_per_s": n_edges / dt,
+        "steps": 2 * n,
+        "losses": losses,
+    }
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(prog="python -m tmgcn_torch.utils.scale_bench")
+    ap.add_argument("--nodes", type=int, default=500_000)
+    ap.add_argument("--slices", type=int, default=64)
+    ap.add_argument("--nnz-per-slice", type=int, default=2_000_000)
+    ap.add_argument("--edges", type=int, default=1_000_000)
+    ap.add_argument("--band", type=int, default=20)
+    ap.add_argument("--n-timed", type=int, default=20)
+    ap.add_argument("--l2-stream", type=int, default=None,
+                    help="tmgcn2's streamed layer 2 (not ported yet)")
+    ap.add_argument("--families", default="tmgcn1,tmgcn2",
+                    help="comma list of tmgcn1,tmgcn2,evolvegcn,wdgcn")
+    ap.add_argument("--out", default=None, help="also write the JSON result here")
+    ap.add_argument("--device", default="cuda",
+                    help="torch device (default cuda; cpu runs the plain path)")
+    args = ap.parse_args(argv)
+    if args.l2_stream is not None:
+        raise NotImplementedError(
+            "--l2-stream (the streamed restricted layer 2) is not ported yet "
+            "(ROADMAP queue 1, item 12)"
+        )
+    families = [f.strip() for f in args.families.split(",") if f.strip()]
+    for fam in families:  # before the host build, which takes minutes at full size
+        _check_family(fam)
+
+    from tmgcn_torch.configs.build import resolve_device
+
+    device = resolve_device(args.device)
+    res = {
+        "nodes": args.nodes, "slices": args.slices,
+        "nnz_per_slice": args.nnz_per_slice, "edges": args.edges,
+        "device": str(device),
+    }
+    if device.type == "cuda":
+        res["card"] = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+            capture_output=True, text=True, timeout=60, check=True,
+        ).stdout.strip()
+    t0 = time.perf_counter()
+    inputs = build_inputs(args.nodes, args.slices, args.nnz_per_slice, args.edges, args.band)
+    res["build_host_s"] = time.perf_counter() - t0
+    A = inputs[0]
+    print(f"# built: {A.n_slices}x{A.n_nodes}, {int(np.asarray(A.nnz).sum())} nnz, "
+          f"host {res['build_host_s']:.1f}s", file=sys.stderr)
+    for fam in families:
+        out = run_family(fam, inputs, args.n_timed, device)
+        key = _NAMES[fam]
+        ms = out[f"{key}_ms_per_epoch"]
+        res.update({k: v for k, v in out.items() if k.startswith(key)})
+        print(f"# {fam} {ms:.3f} ms/epoch ({out[f'{key}_edges_per_s'] / 1e6:.3f} M edges/s), "
+              f"first run {out[f'{key}_first_run_s']:.1f}s", file=sys.stderr)
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+    if args.out:
+        Path(args.out).parent.mkdir(parents=True, exist_ok=True)
+        Path(args.out).write_text(json.dumps(res, indent=1))
+    print(json.dumps(res))
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())
