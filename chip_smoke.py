@@ -22,7 +22,21 @@ non-zero, and nothing falls back to the CPU:
                forced lane-major (forward and backward against the plain
                gather), two launches bitwise equal; times at the WD-GCN
                scale shape (1M labelled edges into 500k x 64 rows);
-  5. paths   — the main paths, each with every launch count set to 0 just
+  5. K1 bf16 and the restricted operators — K1's bf16-gather tier against
+               its plain version (random packings; the chess_tmgcn2_cls
+               train window's restricted layer-2 operator, forward and
+               backward; the chess cached-propagation shape), bitwise
+               repeat; times of both K1 tiers at the restricted forward and
+               backward shapes; the restricted operator as K1 (f32, bf16)
+               and as block-dense on cuBLAS (exact, bf16), forward and
+               forward + backward, held against each other;
+  6. K3      — the tile-dedup kernel, float32 and bf16 tiers, against its
+               plain version: random tiled packings (F = 2, 6, 128, small
+               ut_cap cuts, repeated entries, empty windows) and the chess
+               train window's tiled packing at F = 2 (forward and operator
+               backward), bitwise repeat; times beside the bound and
+               torch.sparse.mm;
+  7. paths   — the main paths, each with every launch count set to 0 just
                before it and read just after:
                a. ``run_experiment`` of chess_tmgcn_cls, spmm_impl="pallas",
                   200 epochs: 3 K1 launches (the cached propagation), then
@@ -39,8 +53,19 @@ non-zero, and nothing falls back to the CPU:
                   (500,000 nodes x 64 slices, 1,000,000 labelled edges,
                   nnz_per_slice cut from 2,000,000 to 250,000): one K2
                   launch per training step, no K1;
-  6. a JSON line {"kernels": [...]} with every ported kernel's numbers;
-  7. last line: {"ok": true, "device": {...}}.
+               e. ``run_experiment`` of chess_tmgcn2_cls, spmm_impl="pallas",
+                  200 epochs: 407 K1 launches (3 cached propagations, the
+                  restricted layer 2 forward and backward per step, val and
+                  test forwards at 2 evaluation epochs); a warm rerun with
+                  the same rows; 5 epochs against the CPU's plain path;
+               f. the same with "pallas_bf16": 407 bf16 K1 launches;
+               g. "pallas_tiled" and "pallas_tiled_bf16", 5 epochs each: 3
+                  K3 launches of the tier (the cached propagations; layer 2
+                  is "auto": block-dense on chess, no K1);
+               h. the preset as it stands ("jnp": auto, block-dense), 200
+                  epochs: no hand-written kernel launched;
+  8. a JSON line {"kernels": [...]} with every ported kernel's numbers;
+  9. last line: {"ok": true, "device": {...}}.
 
 Without CUDA, or outside a checkout, it exits non-zero and prints no
 result. It imports nothing of JAX.
@@ -59,13 +84,27 @@ import time
 # H100 SXM data-sheet peaks (float32 outside the tensor cores; HBM3).
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOP_PER_S = 67e12
-ATOL = 1e-5  # float32 sums taken in another order; scaled by max(1, |ref|)
+# Float32 sums taken in another order; scaled by max(1, |ref|). The bf16
+# tiers too: their plain versions round each product to bf16 as the
+# kernels do, so only the order of the float32 sums differs.
+ATOL = 1e-5
 EPOCHS = 200
 REF_EPOCHS = 5
 DATA_DIR = "data/chess"
 SOURCE = "tmgcn_torch/kernels/csrc/windowed_segment_matmul.cu"
+K3_SOURCE = "tmgcn_torch/kernels/csrc/windowed_tiled_segment_matmul.cu"
 K1_REPLACES = "tmgcn_tpu/kernels/spmm_pallas.py:650"
 K2_REPLACES = "tmgcn_tpu/kernels/spmm_pallas.py:761"
+K3_REPLACES = "tmgcn_tpu/kernels/spmm_pallas.py:560"
+# Launch counters, in the order of the kernels line: (wrapper name, counter).
+COUNTERS = (
+    ("windowed_segment_matmul", "launches"),
+    ("windowed_segment_matmul", "launches_bf16"),
+    ("windowed_segment_matmul_t", "launches"),
+    ("windowed_tiled_segment_matmul", "launches"),
+    ("windowed_tiled_segment_matmul", "launches_bf16"),
+)
+BF16_RTOL = 1e-3  # losses of the bf16 paths against the CPU's plain path
 DEVICE = "cuda"
 # The WD-GCN scale run: tools/bench_scale.py's wdgcn family, host build cut.
 SCALE = {"n_nodes": 500_000, "n_slices": 64, "nnz_per_slice": 250_000,
@@ -101,16 +140,25 @@ def _max_err(out, ref) -> tuple[float, float]:
     return err, ATOL * max(1.0, ref.abs().max().item() if ref.numel() else 0.0)
 
 
-def _check_kernel(torch, kernel, plain, packed, gathered, init_fn, what: str) -> float:
+def _check_same(torch, run_kernel, run_plain, what: str) -> float:
     """Kernel vs plain version on the same card inputs; bitwise repeat."""
-    out = kernel(packed, gathered, init=init_fn())
-    again = kernel(packed, gathered, init=init_fn())
-    ref = plain(packed, gathered, init=init_fn())
+    out = run_kernel()
+    again = run_kernel()
+    ref = run_plain()
     torch.cuda.synchronize()
     err, tol = _max_err(out, ref)
     check(err <= tol, f"{what}: max abs err {err} > {tol}")
     check(torch.equal(out, again), f"{what}: two launches differ")
     return err
+
+
+def _check_kernel(torch, kernel, plain, packed, gathered, init_fn, what: str) -> float:
+    """K1/K2 vs plain version, float32 out, with init_fn()'s output store."""
+    f32 = torch.float32
+    return _check_same(
+        torch, lambda: kernel(packed, gathered, out_dtype=f32, init=init_fn()),
+        lambda: plain(packed, gathered, out_dtype=f32, init=init_fn()), what,
+    )
 
 
 def _check_operator_backward(torch, tk, op, X, what: str) -> float:
@@ -156,25 +204,31 @@ def _time_ms(torch, fn, reps: int = 25) -> float:
     return statistics.median(times)
 
 
-def _bound(p, F: int, n_real: int, with_init: bool) -> tuple[float, str, int, int]:
+def _bound_ms(bytes_moved: int, flops: int) -> tuple[float, str]:
+    """The larger of the bytes over the memory rate and the operations
+    over the float32 rate, in ms, and which of the two it is."""
+    t_bytes, t_ops = bytes_moved / PEAK_BYTES_PER_S, flops / PEAK_F32_FLOP_PER_S
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def _bound(p, F: int, n_real: int, with_init: bool, itemsize: int = 4) -> tuple[float, str, int, int]:
     """The least time for K1/K2's function on these inputs.
 
     The function needs only the real entries (a row id, a value and F
-    gathered features each; the padding slots of the packing are not
-    counted), the window offsets, and each output element it writes, once.
-    Without an init it writes every window; with one (the caller's zeros)
-    it writes only the windows that own a chunk, and leaves the rest alone.
+    gathered features of ``itemsize`` bytes each; the padding slots of the
+    packing are not counted), the window offsets, and each float32 output
+    element it writes, once. Without an init it writes every window; with
+    one (the caller's zeros) it writes only the windows that own a chunk,
+    and leaves the rest alone.
     """
     if with_init:
         wp = p.window_ptr
         n_written = int((wp[1:] > wp[:-1]).sum()) * p.window
     else:
         n_written = p.n_rows_out
-    bytes_moved = 4 * (n_real * (2 + F) + p.window_ptr.numel() + n_written * F)
+    bytes_moved = 4 * (2 * n_real + p.window_ptr.numel() + n_written * F) + itemsize * n_real * F
     flops = 2 * n_real * F
-    t_bytes, t_ops = bytes_moved / PEAK_BYTES_PER_S, flops / PEAK_F32_FLOP_PER_S
-    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations"), \
-        bytes_moved, flops
+    return (*_bound_ms(bytes_moved, flops), bytes_moved, flops)
 
 
 def _slot_csr(torch, p, n_real_mask):
@@ -209,6 +263,34 @@ def _time_shape(torch, kernel, plain, p, gathered, F, n_real, init_shape, lib_fn
     print(f"{what}: library ms (torch.sparse.mm, CSR): {library_ms:.6f}")
     return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": library_ms}
+
+
+def _report(torch, what: str, kernel_fn, plain_fn, lib_fn, bound) -> dict:
+    """Kernel, plain and library times of one shape, beside its bound."""
+    ms = _time_ms(torch, kernel_fn)
+    plain_ms = _time_ms(torch, plain_fn)
+    library_ms = _time_ms(torch, lib_fn)
+    bound_ms, bound_by, nbytes, flops = bound
+    print(f"{what}: kernel ms (median, CUDA events, L2 flushed): {ms:.6f}")
+    print(f"{what}: plain version ms: {plain_ms:.6f}")
+    print(f"{what}: bound ms: {bound_ms:.6f} ({bound_by}: {nbytes} bytes, {flops} operations)")
+    print(f"{what}: library ms (torch.sparse.mm, CSR): {library_ms:.6f}")
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": library_ms}
+
+
+def _packing_csr(torch, p, n_in: int, transpose: bool = False):
+    """The (n_rows_out, n_in) CSR matrix of a K1 packing's real entries
+    (global row, column id, value): torch.sparse.mm of it and the input
+    rows computes the operator's function, gather included (a yardstick;
+    the port never calls it)."""
+    out_row = (p.window_id.long()[:, None] * p.window + p.rows.long()).reshape(-1)
+    keep = (p.vals != 0).reshape(-1)
+    idx = torch.stack([out_row[keep], p.cols.long().reshape(-1)[keep]])
+    shape = (p.n_rows_out, n_in)
+    if transpose:
+        idx, shape = idx.flip(0), shape[::-1]
+    return torch.sparse_coo_tensor(idx, p.vals.reshape(-1)[keep], shape).coalesce().to_sparse_csr()
 
 
 @functools.cache
@@ -435,6 +517,294 @@ def phase_k2(torch, np, scale_edges) -> dict:
     }
 
 
+@functools.cache
+def _chess2():
+    """chess_tmgcn2_cls's data and train split (the chess windows of the
+    TM-GCN presets), built once."""
+    from tmgcn_torch.configs.build import build_data
+    from tmgcn_torch.configs.presets import get_preset
+    from tmgcn_torch.tasks.windows import split_edges_classification
+
+    cfg = get_preset("chess_tmgcn2_cls")
+    data = build_data(cfg, data_dir=DATA_DIR)
+    split = split_edges_classification(
+        data.edge_index, data.edge_values, data.spec, n_classes=cfg.n_classes
+    )["train"]
+    return data, split
+
+
+def _chess_propagation_input(torch, data):
+    """The train window's Ct (host) and M ×₁ X flattened on the card, (T*N, 2)."""
+    from tmgcn_torch.ops.mtransform import m_transform
+
+    dev = torch.device(DEVICE)
+    M = torch.as_tensor(data.M, dtype=torch.float32, device=dev)
+    X = torch.as_tensor(data.feats["train"], dtype=torch.float32, device=dev)
+    flat = m_transform(M, X)
+    return data.adj["train"], flat.reshape(-1, flat.shape[-1])
+
+
+def phase_restricted(torch, np) -> tuple[dict, dict]:
+    """K1's bf16 tier, both K1 tiers at the restricted shapes, and the
+    restricted operator as K1 and as block-dense."""
+    from tmgcn_torch.kernels import spmm_cuda as tk
+    from tmgcn_torch.ops.spmm_blockdense import estimate
+    from tmgcn_torch.tasks.adapters import _build_restricted_layer2
+
+    dev = torch.device(DEVICE)
+    k1, k1p = tk.windowed_segment_matmul, tk.windowed_segment_matmul_reference
+    f32, bf16 = torch.float32, torch.bfloat16
+
+    def k1_run(p, g, init_fn=lambda: None):
+        return lambda: k1(p, g, out_dtype=f32, init=init_fn())
+
+    def k1p_run(p, g, init_fn=lambda: None):
+        return lambda: k1p(p, g, out_dtype=f32, init=init_fn())
+
+    max_err = 0.0
+    for F in (2, 6, 128):
+        for use_init in (False, True):
+            rows, cols, vals = _random_stream(np, 200 + F, 20_000)
+            p = tk.pack_windowed_flat(
+                rows, cols, vals, 20_000, chunk=512, sort_cols=True, all_windows=not use_init
+            ).to(dev)
+            g = torch.randn(p.n_chunks, p.chunk, F, device=dev).to(bf16)
+
+            def init_fn(p=p, F=F, use_init=use_init):
+                return torch.zeros(p.n_rows_out, F, device=dev) if use_init else None
+
+            max_err = max(max_err, _check_same(torch, k1_run(p, g, init_fn), k1p_run(p, g, init_fn),
+                                               f"K1 bf16 F={F} init={use_init}"))
+    print(f"K1 bf16 random packings: ok (max abs err {max_err:.3e})")
+
+    # The restricted layer-2 operator of chess_tmgcn2_cls's train window.
+    data, split = _chess2()
+    Ct = data.adj["train"]
+    T, N = Ct.n_slices, Ct.n_nodes
+    cached = torch.zeros(T, N, 2, device=dev)  # the operators do not read it
+    ops, shape = {}, None
+    for operator in ("pallas", "pallas_bf16", "blockdense", "blockdense_bf16"):
+        bundle = {"cached": cached}
+        t0 = time.perf_counter()
+        uniq, used = _build_restricted_layer2(bundle, Ct, split.edges, False, operator)
+        t_build = time.perf_counter() - t0
+        ops[operator] = op = bundle["l2op"]
+        if operator == "pallas":
+            p, pt = op.packed, op.packed_t
+            nnz = int((p.vals != 0).sum())
+            est = estimate(*_host_stream(np, p))
+            shape = (f"{len(uniq)} endpoint rows x {len(used)} used rows, nnz {nnz}, "
+                     f"{p.n_chunks} forward / {pt.n_chunks} backward chunks of {p.chunk}, "
+                     f"{est['n_blocks']} blocks of 128^2, estimate ratio {est['ratio']:.4f}")
+            print(f"restricted train operator: {shape}")
+        print(f"restricted operator {operator}: built in {t_build:.3f} s")
+    n_in, n_out = len(used), len(uniq)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    Y = torch.randn(n_in, 6, device=dev, generator=gen)
+    G = torch.randn(n_out, 6, device=dev, generator=gen)
+
+    # Both K1 tiers at the restricted forward (A) and backward (Aᵀ) shapes.
+    op = ops["pallas"]
+    timings = {}
+    for tier, dtype in (("f32", f32), ("bf16", bf16)):
+        for direction, p, x, n_x in (("forward", op.packed, Y, n_in),
+                                     ("backward", op.packed_t, G, n_out)):
+            g = tk.gather_chunks(x.to(dtype), p)
+            what = f"K1 {tier} restricted {direction}"
+            max_err = max(max_err, _check_same(torch, k1_run(p, g), k1p_run(p, g), what))
+            S = _packing_csr(torch, p, n_x)
+            x32 = x.to(dtype).float()
+            lib_out = torch.sparse.mm(S, x32)
+            err, tol = _max_err(k1(p, g, out_dtype=f32), lib_out)
+            check(tier == "bf16" or err <= tol, f"{what} vs torch.sparse.mm: {err} > {tol}")
+            print(f"{what}: J={p.n_chunks} C={p.chunk} W={p.window} F=6 nnz={nnz}")
+            timings[(tier, direction)] = _report(
+                torch, what, k1_run(p, g), k1p_run(p, g), lambda S=S, x32=x32: torch.sparse.mm(S, x32),
+                _bound(p, 6, nnz, False, itemsize=2 if tier == "bf16" else 4),
+            )
+
+    # The restricted operator, four ways, forward and forward + backward.
+    outs, comparison = {}, {}
+    for name, o in ops.items():
+        Yg = Y.clone().requires_grad_(True)
+        out = o(Yg)
+        (dY,) = torch.autograd.grad(out, Yg, G)
+        outs[name] = (out.detach(), dY)
+
+        def fwd_bwd(o=o, Yg=Yg):
+            torch.autograd.grad(o(Yg), Yg, G)
+
+        comparison[name] = {"forward_ms": _time_ms(torch, lambda o=o: o(Y)),
+                            "forward_backward_ms": _time_ms(torch, fwd_bwd)}
+        print(f"restricted operator {name}: forward {comparison[name]['forward_ms']:.6f} ms, "
+              f"forward + backward {comparison[name]['forward_backward_ms']:.6f} ms")
+    for name, rel in (("blockdense", ATOL), ("pallas_bf16", 2e-2), ("blockdense_bf16", 3e-2)):
+        for i, what in enumerate(("forward", "backward")):
+            ref = outs["pallas"][i]
+            err = (outs[name][i] - ref).abs().max().item()
+            tol = rel * max(1.0, ref.abs().max().item())
+            check(err <= tol, f"restricted {name} {what} vs K1: {err} > {tol}")
+    print("restricted operators agree with K1 (blockdense 1e-5, pallas_bf16 2e-2, "
+          "blockdense_bf16 3e-2 of the scale)")
+
+    # K1 bf16 at the chess cached-propagation shape (pallas_bf16's packing).
+    Ct, flat = _chess_propagation_input(torch, data)
+    prop = tk.make_operator(Ct, chunk=512, window=256, gather_dtype="bfloat16",
+                            sort_cols=True).to(dev)
+    p = prop.packed
+    g = tk.gather_chunks(flat.to(bf16), p)
+    nnz_prop = int((p.vals != 0).sum())
+    max_err = max(max_err, _check_same(torch, k1_run(p, g), k1p_run(p, g),
+                                       "K1 bf16 chess cached propagation"))
+    S = _packing_csr(torch, p, flat.shape[0])
+    f32_in = flat.to(bf16).float()
+    print(f"K1 bf16 chess cached propagation: J={p.n_chunks} C={p.chunk} W={p.window} F=2 "
+          f"nnz={nnz_prop}")
+    prop_timing = _report(torch, "K1 bf16 chess cached propagation", k1_run(p, g), k1p_run(p, g),
+                          lambda: torch.sparse.mm(S, f32_in), _bound(p, 2, nnz_prop, False, 2))
+    print(f"K1 bf16 max abs err over every check: {max_err:.3e}")
+    del prop, p, g, S, f32_in, flat
+    k1_bf16 = {
+        "name": "windowed_segment_matmul_bf16",
+        "route": "cuda",
+        "source": SOURCE,
+        "replaces": K1_REPLACES,
+        "max_abs_err": max_err,
+        **timings[("bf16", "forward")],
+        "shape": f"chess_tmgcn2_cls restricted train forward, F=6 ({shape})",
+        "restricted_backward": timings[("bf16", "backward")],
+        "cached_propagation": prop_timing,
+    }
+    restricted = {
+        "shape": shape,
+        "k1_f32_forward": timings[("f32", "forward")],
+        "k1_f32_backward": timings[("f32", "backward")],
+        "operators": comparison,
+    }
+    return k1_bf16, restricted
+
+
+def _host_stream(np, p):
+    """A K1 packing's real (global row, column) ids on the host."""
+    rows = (p.window_id.long()[:, None] * p.window + p.rows.long()).cpu().numpy().ravel()
+    cols = p.cols.cpu().numpy().ravel()
+    keep = (p.vals != 0).cpu().numpy().ravel()
+    return rows[keep], cols[keep]
+
+
+def _tiled_stream(np, seed: int, n_out: int):
+    """Row-sorted entries, every (row, col) pair twice, columns crowded into
+    few tiles, a third of the windows empty."""
+    rng = np.random.default_rng(seed)
+    rows = rng.integers(0, n_out, 30_000)
+    rows = rows[(rows // 256) % 3 != 1]
+    cols = rng.integers(0, 4_000, rows.size)
+    order = np.argsort(np.r_[rows, rows], kind="stable")
+    vals = rng.standard_normal(rows.size).astype(np.float32)
+    return np.r_[rows, rows][order], np.r_[cols, cols][order], np.r_[vals, vals][order]
+
+
+def _tiled_bound(torch, p, F: int, itemsize: int) -> tuple[float, str, int, int]:
+    """The least time for K3's function on these inputs: each real entry's
+    row id, tile index and value (12 bytes), each chunk's distinct tiles'
+    8 rows of F features, the window offsets, and the float32 output (every
+    window), once."""
+    real = p.vals != 0
+    n_real = int(real.sum())
+    n_tiles = int(torch.where(real, p.uidx // 8 + 1, 0).amax(dim=1).sum())
+    nbytes = 12 * n_real + itemsize * 8 * F * n_tiles + 4 * (p.window_ptr.numel() + p.n_rows_out * F)
+    return (*_bound_ms(nbytes, 2 * n_real * F), nbytes, 2 * n_real * F)
+
+
+def _tiled_csr(torch, p):
+    """The (n_rows_out, J * ut_cap * 8) CSR matrix from each real entry to
+    its row of the gathered tile blocks: torch.sparse.mm of it and the
+    blocks computes K3's sums (a yardstick; the port never calls it)."""
+    J, C = p.rows.shape
+    U8 = 8 * p.ut_cap
+    out_row = (p.window_id.long()[:, None] * p.window + p.rows.long()).reshape(-1)
+    block_row = (torch.arange(J, device=p.rows.device)[:, None] * U8 + p.uidx.long()).reshape(-1)
+    keep = (p.vals != 0).reshape(-1)
+    return torch.sparse_coo_tensor(
+        torch.stack([out_row[keep], block_row[keep]]), p.vals.reshape(-1)[keep],
+        (p.n_rows_out, J * U8),
+    ).coalesce().to_sparse_csr()
+
+
+def phase_k3(torch, np) -> tuple[dict, dict]:
+    from tmgcn_torch.kernels import spmm_cuda as tk
+
+    dev = torch.device(DEVICE)
+    k3, k3p = tk.windowed_tiled_segment_matmul, tk.windowed_tiled_segment_matmul_reference
+    f32, bf16 = torch.float32, torch.bfloat16
+    max_err = {f32: 0.0, bf16: 0.0}
+    for F, ut_cap in ((2, 4), (6, 64), (128, 8)):
+        rows, cols, vals = _tiled_stream(np, F, 20_000)
+        p = tk.pack_windowed_tiled_flat(rows, cols, vals, 20_000, 512, 256, ut_cap,
+                                        all_windows=F == 2).to(dev)
+        for dtype in (f32, bf16):
+            g = torch.randn(p.n_chunks, 8 * ut_cap, F, device=dev).to(dtype)
+            max_err[dtype] = max(max_err[dtype], _check_same(
+                torch, lambda p=p, g=g: k3(p, g, out_dtype=f32),
+                lambda p=p, g=g: k3p(p, g, out_dtype=f32), f"K3 {dtype} F={F} ut_cap={ut_cap}"))
+    print(f"K3 random tiled packings: ok (max abs err f32 {max_err[f32]:.3e}, "
+          f"bf16 {max_err[bf16]:.3e})")
+
+    # The chess train window's tiled packing (pallas_tiled's), F = 2.
+    data, _ = _chess2()
+    Ct, flat = _chess_propagation_input(torch, data)
+    T, N = Ct.n_slices, Ct.n_nodes
+    t0 = time.perf_counter()
+    op = tk.make_operator(Ct, chunk=512, window=256, tile_dedup=True)
+    t_pack = time.perf_counter() - t0
+    op = op.to(dev)
+    p = op.packed
+    real = p.vals != 0
+    n_tiles = int(torch.where(real, p.uidx // 8 + 1, 0).amax(dim=1).sum())
+    shape = (f"chess train window tiled, F=2: {p.n_chunks} chunks of {p.chunk} "
+             f"(ut_cap {p.ut_cap}), {int(real.sum())} entries, {n_tiles / p.n_chunks:.2f} "
+             f"distinct tiles per chunk")
+    print(f"{shape}; packed (both directions) in {t_pack:.3f} s")
+    entries = {}
+    for tier, dtype in (("f32", f32), ("bf16", bf16)):
+        tier_op = dataclasses.replace(op, gather_dtype="bfloat16" if tier == "bf16" else None)
+        g = tk.gather_chunks(flat.to(dtype), p)
+        what = f"K3 {tier} chess train window"
+        max_err[dtype] = max(max_err[dtype], _check_same(
+            torch, lambda g=g: k3(p, g, out_dtype=f32), lambda g=g: k3p(p, g, out_dtype=f32), what))
+        # The operator's backward: K3 over the transposed tiled packing.
+        X = flat.reshape(T, N, 2).clone().requires_grad_(True)
+        G = torch.randn(X.shape, device=dev, generator=torch.Generator(device=dev).manual_seed(7))
+        (tier_op(X) * G).sum().backward()
+        pt = op.packed_t
+        ref = k3p(pt, tk.gather_chunks(G.reshape(T * N, 2).to(dtype), pt), out_dtype=f32)[: T * N]
+        err, tol = _max_err(X.grad.reshape(T * N, 2), ref)
+        check(err <= tol, f"K3 {tier} chess operator backward: {err} > {tol}")
+        max_err[dtype] = max(max_err[dtype], err)
+        S = _tiled_csr(torch, p)
+        g32 = g.float().reshape(-1, 2)
+        lib_out = torch.sparse.mm(S, g32)
+        err, tol = _max_err(k3(p, g, out_dtype=f32), lib_out)
+        # The library sums unrounded float32 products: bf16 differs there.
+        check(tier == "bf16" or err <= tol, f"{what} vs torch.sparse.mm: {err} > {tol}")
+        entries[tier] = {
+            "name": "windowed_tiled_segment_matmul" + ("_bf16" if tier == "bf16" else ""),
+            "route": "cuda",
+            "source": K3_SOURCE,
+            "replaces": K3_REPLACES,
+            "max_abs_err": max_err[dtype],
+            **_report(torch, what, lambda g=g: k3(p, g, out_dtype=f32),
+                      lambda g=g: k3p(p, g, out_dtype=f32),
+                      lambda S=S, g32=g32: torch.sparse.mm(S, g32),
+                      _tiled_bound(torch, p, 2, 2 if tier == "bf16" else 4)),
+            "shape": shape,
+        }
+        del S, g32, lib_out, X, G
+    print(f"K3 max abs err over every check: f32 {max_err[f32]:.3e}, bf16 {max_err[bf16]:.3e}")
+    torch.cuda.empty_cache()
+    return entries["f32"], entries["bf16"]
+
+
 def _check_rows(np, res, what: str) -> None:
     check(res.shape[1] == 12, f"{what}: results are not (epochs, 12)")
     check(bool(np.all(np.isfinite(res[:, [3, 7, 11]]))), f"{what}: a loss is not finite")
@@ -450,39 +820,46 @@ def _check_rows(np, res, what: str) -> None:
 
 
 def _counted(tk, fn):
-    """Run fn with both kernels' launch counts set to 0; (result, (K1, K2))."""
-    tk.windowed_segment_matmul.launches = 0
-    tk.windowed_segment_matmul_t.launches = 0
+    """Run fn with every launch count set to 0; (result, the counts in
+    COUNTERS order: K1, K1 bf16, K2, K3, K3 bf16)."""
+    for fn_name, counter in COUNTERS:
+        setattr(getattr(tk, fn_name), counter, 0)
     out = fn()
-    return out, (tk.windowed_segment_matmul.launches, tk.windowed_segment_matmul_t.launches)
+    return out, tuple(getattr(getattr(tk, fn_name), counter) for fn_name, counter in COUNTERS)
 
 
-def _run_slice(torch, np, tk, cfg, e_train: int, expected: tuple[int, int]) -> tuple[int, int]:
-    """200 epochs on cuda (counted), a warm rerun, 5 epochs against the CPU."""
+def _run_slice(torch, np, tk, cfg, e_train: int, expected: tuple, epochs: int = EPOCHS,
+               warm: bool = True, rtol: float = 1e-4) -> tuple:
+    """Epochs on cuda (counted), a warm rerun, 5 epochs against the CPU."""
     from tmgcn_torch.configs.build import run_experiment
 
     name = f"{cfg.name} ({cfg.spmm_impl})"
     out, launches = _counted(tk, lambda: run_experiment(
-        cfg, data_dir=DATA_DIR, n_epochs=EPOCHS, verbose=False, device=DEVICE))
+        cfg, data_dir=DATA_DIR, n_epochs=epochs, verbose=False, device=DEVICE))
     check(launches == expected,
-          f"{name}: (K1, K2) launched {launches} times on the main path, expected {expected}")
+          f"{name}: (K1, K1 bf16, K2, K3, K3 bf16) launched {launches} times on the main path, "
+          f"expected {expected}")
     (res,) = out["results"].values()
-    check(res.shape == (EPOCHS, 12), f"{name}: results shape {res.shape}")
+    check(res.shape == (epochs, 12), f"{name}: results shape {res.shape}")
     _check_rows(np, res, f"{name} cuda run")
     sec = out["seconds"]
-    print(f"slice {name} cuda, first run: {EPOCHS} epochs, (K1, K2) launches {launches}; "
-          f"data {sec['data']:.3f} s, adapter {sec['adapter']:.3f} s, train {sec['train']:.3f} s "
-          f"({1e3 * sec['train'] / EPOCHS:.6f} ms/epoch with the process's first launches)")
+    print(f"slice {name} cuda, first run: {epochs} epochs, (K1, K1 bf16, K2, K3, K3 bf16) "
+          f"launches {launches}; data {sec['data']:.3f} s, adapter {sec['adapter']:.3f} s, "
+          f"train {sec['train']:.3f} s ({1e3 * sec['train'] / epochs:.6f} ms/epoch with the "
+          f"process's first launches)")
     print(f"slice {name} final row: train f1 {res[-1, 2]:.4f} loss {res[-1, 3]:.6f} | "
           f"val f1 {res[-1, 6]:.4f} | test f1 {res[-1, 10]:.4f}")
-    # The same run again, warm: the steady-state epoch time.
-    warm = run_experiment(cfg, data_dir=DATA_DIR, n_epochs=EPOCHS, verbose=False, device=DEVICE)
-    (warm_res,) = warm["results"].values()
-    check(np.array_equal(warm_res, res, equal_nan=True), f"{name}: a repeated run gave other rows")
-    t_warm = warm["seconds"]["train"]
-    print(f"slice {name} warm run: {1e3 * t_warm / EPOCHS:.6f} ms/epoch, "
-          f"{e_train * EPOCHS / t_warm:.1f} labelled edges/s ({e_train} training edges, "
-          f"{EPOCHS} epochs, 2 evaluation epochs)")
+    if warm:
+        # The same run again, warm: the steady-state epoch time.
+        again = run_experiment(cfg, data_dir=DATA_DIR, n_epochs=epochs, verbose=False,
+                               device=DEVICE)
+        (warm_res,) = again["results"].values()
+        check(np.array_equal(warm_res, res, equal_nan=True),
+              f"{name}: a repeated run gave other rows")
+        t_warm = again["seconds"]["train"]
+        print(f"slice {name} warm run: {1e3 * t_warm / epochs:.6f} ms/epoch, "
+              f"{e_train * epochs / t_warm:.1f} labelled edges/s ({e_train} training edges, "
+              f"{epochs} epochs, {-(-epochs // 100)} evaluation epochs)")
 
     # Reference: the same run on the CPU's plain path, first epochs.
     ref = run_experiment(cfg, data_dir=DATA_DIR, n_epochs=REF_EPOCHS, verbose=False,
@@ -490,13 +867,13 @@ def _run_slice(torch, np, tk, cfg, e_train: int, expected: tuple[int, int]) -> t
     (ref_res,) = ref["results"].values()
     got = res[:REF_EPOCHS]
     losses = [3, 7, 11]
-    check(bool(np.allclose(got[:, losses], ref_res[:, losses], rtol=1e-4, atol=0)),
+    check(bool(np.allclose(got[:, losses], ref_res[:, losses], rtol=rtol, atol=0)),
           f"{name}: losses differ from the CPU plain path: {got[:, losses]} vs {ref_res[:, losses]}")
     f1s = [2, 6, 10]
     same_nan = np.isnan(got[:, f1s]) == np.isnan(ref_res[:, f1s])
     close = np.nan_to_num(np.abs(got[:, f1s] - ref_res[:, f1s]), nan=0.0) <= 1e-3
     check(bool(np.all(same_nan & close)), f"{name}: F1 differs from the CPU plain path")
-    print(f"slice {name} vs CPU plain path, {REF_EPOCHS} epochs: losses within rtol 1e-4, "
+    print(f"slice {name} vs CPU plain path, {REF_EPOCHS} epochs: losses within rtol {rtol}, "
           f"F1 within 1e-3")
     return launches
 
@@ -505,7 +882,7 @@ def phase_tmgcn(torch, np, tk, e_train: int) -> tuple[int, int]:
     from tmgcn_torch.configs.presets import get_preset
 
     cfg = dataclasses.replace(get_preset("chess_tmgcn_cls"), spmm_impl="pallas")
-    return _run_slice(torch, np, tk, cfg, e_train, (3, 0))
+    return _run_slice(torch, np, tk, cfg, e_train, (3, 0, 0, 0, 0))
 
 
 def phase_wdgcn_chess(torch, np, tk, e_train: int) -> dict[str, tuple[int, int]]:
@@ -514,18 +891,19 @@ def phase_wdgcn_chess(torch, np, tk, e_train: int) -> dict[str, tuple[int, int]]
 
     cfg = get_preset("chess_wdgcn_cls")
     check(cfg.spmm_impl == "jnp", "chess_wdgcn_cls is expected to name spmm_impl jnp")
-    counts = {"chess_wdgcn_cls": _run_slice(torch, np, tk, cfg, e_train, (EPOCHS, 0))}
+    counts = {"chess_wdgcn_cls": _run_slice(torch, np, tk, cfg, e_train, (EPOCHS, 0, 0, 0, 0))}
     # The CLI, with the CUDA propagation: 3 more K1 launches at set-up.
     argv = ["run", "chess_wdgcn_cls", "--data-dir", DATA_DIR, "--spmm-impl", "pallas",
             "--epochs", str(EPOCHS), "--quiet"]
     t0 = time.perf_counter()
     rc, launches = _counted(tk, lambda: cli.main(argv))
     check(rc == 0, f"cli {' '.join(argv)} exited {rc}")
-    check(launches == (EPOCHS + 3, 0),
-          f"cli run chess_wdgcn_cls --spmm-impl pallas: (K1, K2) launched {launches} times, "
-          f"expected {(EPOCHS + 3, 0)}")
+    expected = (EPOCHS + 3, 0, 0, 0, 0)
+    check(launches == expected,
+          f"cli run chess_wdgcn_cls --spmm-impl pallas: launched {launches} times, "
+          f"expected {expected}")
     print(f"cli run chess_wdgcn_cls --spmm-impl pallas: {EPOCHS} epochs in "
-          f"{time.perf_counter() - t0:.3f} s, (K1, K2) launches {launches}")
+          f"{time.perf_counter() - t0:.3f} s, (K1, K1 bf16, K2, K3, K3 bf16) launches {launches}")
     counts["cli chess_wdgcn_cls --spmm-impl pallas"] = launches
     return counts
 
@@ -536,9 +914,9 @@ def phase_wdgcn_scale(torch, np, tk, inputs, t_build: float) -> tuple[int, int]:
     out, launches = _counted(
         tk, lambda: scale_bench.run_family("wdgcn", inputs, SCALE_N_TIMED, DEVICE))
     steps = out["steps"]
-    check(launches == (0, steps),
-          f"WD-GCN scale: (K1, K2) launched {launches} times in {steps} steps, "
-          f"expected {(0, steps)}")
+    check(launches == (0, 0, steps, 0, 0),
+          f"WD-GCN scale: (K1, K1 bf16, K2, K3, K3 bf16) launched {launches} times in {steps} "
+          f"steps, expected {(0, 0, steps, 0, 0)}")
     losses = out["losses"]
     check(losses.shape == (steps,) and bool(np.all(np.isfinite(losses))),
           f"WD-GCN scale: losses not finite: {losses}")
@@ -547,9 +925,38 @@ def phase_wdgcn_scale(torch, np, tk, inputs, t_build: float) -> tuple[int, int]:
           f"2000000 to shorten the host build; only the set-up depends on it): host build "
           f"{t_build:.3f} s, adapter build {out['wdgcn_build_s']:.3f} s, first {steps // 2} steps "
           f"{out['wdgcn_first_run_s']:.3f} s, {out['wdgcn_ms_per_epoch']:.6f} ms/epoch, "
-          f"{out['wdgcn_edges_per_s']:.1f} labelled edges/s; (K1, K2) launches {launches} in "
+          f"{out['wdgcn_edges_per_s']:.1f} labelled edges/s; launches {launches} in "
           f"{steps} steps; losses {losses.tolist()}")
     return launches
+
+
+def phase_tmgcn2(torch, np, tk) -> dict[str, tuple]:
+    """chess_tmgcn2_cls through run_experiment with every kernel impl, and
+    the preset as it stands."""
+    from tmgcn_torch.configs.presets import get_preset
+
+    base = get_preset("chess_tmgcn2_cls")
+    check(base.spmm_impl == "jnp", "chess_tmgcn2_cls is expected to name spmm_impl jnp")
+    _, split = _chess2()
+    e_train = split.target.size
+    # 3 cached propagations, forward and backward per step, and a val and a
+    # test forward at each of the 2 evaluation epochs (train/loop.py).
+    k1_launches = 3 + 2 * EPOCHS + 4
+    counts = {}
+    cfg = dataclasses.replace(base, spmm_impl="pallas")
+    counts["chess_tmgcn2_cls pallas"] = _run_slice(
+        torch, np, tk, cfg, e_train, (k1_launches, 0, 0, 0, 0))
+    cfg = dataclasses.replace(base, spmm_impl="pallas_bf16")
+    counts["chess_tmgcn2_cls pallas_bf16"] = _run_slice(
+        torch, np, tk, cfg, e_train, (0, k1_launches, 0, 0, 0), warm=False, rtol=BF16_RTOL)
+    for impl, expected, rtol in (("pallas_tiled", (0, 0, 0, 3, 0), 1e-4),
+                                 ("pallas_tiled_bf16", (0, 0, 0, 0, 3), BF16_RTOL)):
+        cfg = dataclasses.replace(base, spmm_impl=impl)
+        counts[f"chess_tmgcn2_cls {impl}"] = _run_slice(
+            torch, np, tk, cfg, e_train, expected, epochs=REF_EPOCHS, warm=False, rtol=rtol)
+    counts["chess_tmgcn2_cls preset (jnp: blockdense)"] = _run_slice(
+        torch, np, tk, base, e_train, (0, 0, 0, 0, 0))
+    return counts
 
 
 def main() -> int:
@@ -574,21 +981,31 @@ def main() -> int:
     inputs = scale_bench.build_inputs(**SCALE)
     t_scale_build = time.perf_counter() - t0
     k2 = phase_k2(torch, np, inputs[3])
+    k1_bf16, restricted = phase_restricted(torch, np)
+    k1.update(restricted_forward=restricted["k1_f32_forward"],
+              restricted_backward=restricted["k1_f32_backward"])
+    k3, k3_bf16 = phase_k3(torch, np)
     by_path = {"chess_tmgcn_cls pallas": phase_tmgcn(torch, np, tk, e_train)}
     by_path.update(phase_wdgcn_chess(torch, np, tk, e_train))
     by_path["wdgcn scale 500k x 64"] = phase_wdgcn_scale(torch, np, tk, inputs, t_scale_build)
+    by_path.update(phase_tmgcn2(torch, np, tk))
     check("jax" not in sys.modules and "tmgcn_tpu" not in sys.modules,
           "the JAX package was imported")
-    for i, k in enumerate((k1, k2)):
+    kernels = (k1, k1_bf16, k2, k3, k3_bf16)
+    for i, k in enumerate(kernels):
         k["launches"] = sum(c[i] for c in by_path.values())
-        k["launches_by_path"] = {path: c[i] for path, c in by_path.items()}
+        k["launches_by_path"] = {path: c[i] for path, c in by_path.items() if c[i]}
+        check(k["launches"] > 0, f"{k['name']} was launched no time on the main paths")
+    print(f"restricted operator times (chess_tmgcn2_cls train window): "
+          f"{json.dumps(restricted['operators'])}")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
-    extra = ("shape", "launches_by_path", "train_window")
+    extra = ("shape", "launches_by_path", "train_window", "restricted_forward",
+             "restricted_backward", "cached_propagation")
     print(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [
         {**{k: kern[k] for k in keys}, **{k: kern[k] for k in extra if k in kern}}
-        for kern in (k1, k2)
+        for kern in kernels
     ]}))
     print(json.dumps({
         "ok": True,

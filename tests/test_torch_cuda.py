@@ -7,7 +7,9 @@ machine with the card and without JAX (tests/conftest.py imports JAX):
     python -m pytest --noconftest -p no:cacheprovider -q tests/test_torch_cuda.py
 
 Tolerance 1e-5 · max(1, |reference|): float32 sums taken in another order
-(the plain version's index_add_ uses atomics on the card).
+(the plain version's index_add_ uses atomics on the card). The bf16 tiers
+take the same tolerance: the plain versions round each product to bf16 as
+the kernels do, so only the order of the float32 sums differs.
 """
 
 import numpy as np
@@ -45,19 +47,21 @@ def _packing(seed, device, sort_cols=True, all_windows=True, F=2):
 
 @pytest.mark.parametrize("F", [1, 2, 6, 128])
 @pytest.mark.parametrize("use_init", [False, True])
-def test_k1_matches_plain_and_repeats_bitwise(cuda_device, F, use_init):
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k1_matches_plain_and_repeats_bitwise(cuda_device, F, use_init, dtype):
     p = _packing(F, cuda_device, all_windows=not use_init)
-    g = torch.randn(p.n_chunks, p.chunk, F, device=cuda_device)
+    g = torch.randn(p.n_chunks, p.chunk, F, device=cuda_device).to(dtype)
 
     def init():
         return torch.zeros(p.n_rows_out, F, device=cuda_device) if use_init else None
 
-    before = tk.windowed_segment_matmul.launches
-    out = tk.windowed_segment_matmul(p, g, init=init())
-    again = tk.windowed_segment_matmul(p, g, init=init())
+    counter = "launches" if dtype == torch.float32 else "launches_bf16"
+    before = getattr(tk.windowed_segment_matmul, counter)
+    out = tk.windowed_segment_matmul(p, g, out_dtype=torch.float32, init=init())
+    again = tk.windowed_segment_matmul(p, g, out_dtype=torch.float32, init=init())
     torch.cuda.synchronize()
-    assert tk.windowed_segment_matmul.launches == before + 2
-    ref = tk.windowed_segment_matmul_reference(p, g, init=init())
+    assert getattr(tk.windowed_segment_matmul, counter) == before + 2
+    ref = tk.windowed_segment_matmul_reference(p, g, out_dtype=torch.float32, init=init())
     scale = max(1.0, ref.abs().max().item())
     torch.testing.assert_close(out, ref, rtol=0, atol=ATOL * scale)
     assert torch.equal(out, again)
@@ -76,11 +80,14 @@ def test_k1_operator_backward(cuda_device):
     torch.testing.assert_close(Xc.grad.cpu(), Xh.grad, rtol=0, atol=ATOL)
 
 
-def test_k1_rejects_bf16(cuda_device):
+def test_k1_rejects_other_tiers(cuda_device):
+    """float16 chunks, or a bf16 output, have no kernel."""
     p = _packing(9, cuda_device)
-    g = torch.randn(p.n_chunks, p.chunk, 2, device=cuda_device, dtype=torch.bfloat16)
+    g = torch.randn(p.n_chunks, p.chunk, 2, device=cuda_device)
     with pytest.raises(NotImplementedError):
-        tk.windowed_segment_matmul(p, g)
+        tk.windowed_segment_matmul(p, g.half(), out_dtype=torch.float32)
+    with pytest.raises(NotImplementedError):
+        tk.windowed_segment_matmul(p, g.to(torch.bfloat16))
 
 
 def test_spmm_segment_path_is_deterministic_on_the_card(cuda_device):
@@ -154,3 +161,92 @@ def test_readout_plan_backward_on_the_card(cuda_device, lane_major):
     assert all(torch.equal(a, b) for a, b in zip(on_card, run(cuda_device)))
     for a, b in zip(on_card, run("cpu")):
         torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
+
+
+def _tiled_packing(seed, device, ut_cap, all_windows=True):
+    """Column-crowded entries (repeated tiles), empty windows, ut_cap cuts."""
+    rng = np.random.default_rng(seed)
+    rows = np.sort(np.concatenate([
+        rng.integers(0, 300, 1500), rng.integers(640, 700, 750), rng.integers(900, 1000, 750),
+    ]))
+    cols = rng.integers(0, 120, rows.size)
+    vals = rng.standard_normal(rows.size).astype(np.float32)
+    p = tk.pack_windowed_tiled_flat(rows, cols, vals, 1000, 64, 128, ut_cap, all_windows)
+    return p.to(device)
+
+
+@pytest.mark.parametrize("F", [1, 2, 6, 128])
+@pytest.mark.parametrize("ut_cap", [4, 64])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k3_matches_plain_and_repeats_bitwise(cuda_device, F, ut_cap, dtype):
+    p = _tiled_packing(F + ut_cap, cuda_device, ut_cap, all_windows=ut_cap == 4)
+    g = torch.randn(p.n_chunks, 8 * ut_cap, F, device=cuda_device).to(dtype)
+    counter = "launches" if dtype == torch.float32 else "launches_bf16"
+    before = getattr(tk.windowed_tiled_segment_matmul, counter)
+    out = tk.windowed_tiled_segment_matmul(p, g, out_dtype=torch.float32)
+    again = tk.windowed_tiled_segment_matmul(p, g, out_dtype=torch.float32)
+    torch.cuda.synchronize()
+    assert getattr(tk.windowed_tiled_segment_matmul, counter) == before + 2
+    ref = tk.windowed_tiled_segment_matmul_reference(p, g, out_dtype=torch.float32)
+    scale = max(1.0, ref.abs().max().item())
+    torch.testing.assert_close(out, ref, rtol=0, atol=ATOL * scale)
+    assert torch.equal(out, again)
+
+
+@pytest.mark.parametrize("kwargs", [
+    {"gather_dtype": "bfloat16", "sort_cols": True, "chunk": 512},
+    {"tile_dedup": True, "chunk": 512},
+    {"tile_dedup": True, "ut_cap": 4, "gather_dtype": "bfloat16"},
+])
+def test_operator_tiers_backward_on_the_card(cuda_device, kwargs):
+    """K1 bf16 and K3 forward and autograd backward against the CPU's plain path."""
+    rng = np.random.default_rng(4)
+    dense = (rng.random((4, 300, 300)) < 0.05) * rng.random((4, 300, 300))
+    X = torch.from_numpy(rng.standard_normal((4, 300, 6)).astype(np.float32))
+    G = torch.from_numpy(rng.standard_normal((4, 300, 6)).astype(np.float32))
+    op = tk.make_operator(TemporalCOO.from_dense(dense, pad_multiple=16), window=256, **kwargs)
+
+    def run(device):
+        Xd = X.to(device).requires_grad_(True)
+        out = op.to(device)(Xd)
+        (out * G.to(device)).sum().backward()
+        return out.detach().cpu(), Xd.grad.cpu()
+
+    on_card = run(cuda_device)
+    assert all(torch.equal(a, b) for a, b in zip(on_card, run(cuda_device)))
+    for a, b in zip(on_card, run("cpu")):
+        torch.testing.assert_close(a, b, rtol=0, atol=ATOL * max(1.0, b.abs().max().item()))
+
+
+@pytest.mark.parametrize("operator", ["pallas", "pallas_bf16", "blockdense", "blockdense_bf16"])
+def test_restricted_layer2_on_the_card(cuda_device, operator):
+    """The restricted 2-layer adapter: logits and gradients against the CPU, repeatable."""
+    from tmgcn_torch.core.mmatrix import make_m_matrix
+    from tmgcn_torch.models.tmgcn import TMGCN2
+    from tmgcn_torch.tasks.adapters import make_edge_adapter
+
+    rng = np.random.default_rng(6)
+    T, N, E = 6, 500, 800
+    dense = (rng.random((T, N, N)) < 0.02) * rng.random((T, N, N))
+    adj = {w: TemporalCOO.from_dense(dense, pad_multiple=16) for w in ("train", "val", "test")}
+    feats = {w: rng.standard_normal((T, N, 2)) for w in adj}
+    edges = {w: np.stack([rng.integers(0, T, E), rng.integers(0, N, E), rng.integers(0, N, E)])
+             for w in adj}
+    M = make_m_matrix(T, 3)
+    model = TMGCN2(n_slices=T, in_feat=2, hidden_feat=(6, 6, 3), nonlin2="selu",
+                   spmm_impl=operator)
+    params = model.init(torch.Generator().manual_seed(0))["params"]
+    G = torch.from_numpy(rng.standard_normal((E, 3)).astype(np.float32))
+
+    def run(device):
+        ad = make_edge_adapter(model, adj, feats, edges, M=M, device=device)
+        p = {k: v.to(device).requires_grad_(True) for k, v in params.items()}
+        out, _ = ad.apply({"params": p, "buffers": {}}, ad.bundles["train"], ())
+        (out * G.to(device)).sum().backward()
+        return [out.detach().cpu()] + [p[k].grad.cpu() for k in sorted(p)]
+
+    on_card = run(cuda_device)
+    assert all(torch.equal(a, b) for a, b in zip(on_card, run(cuda_device)))
+    rel = 3e-2 if operator == "blockdense_bf16" else 2e-2 if operator == "pallas_bf16" else 1e-5
+    for a, b in zip(on_card, run("cpu")):
+        torch.testing.assert_close(a, b, rtol=0, atol=rel * max(1.0, b.abs().max().item()))

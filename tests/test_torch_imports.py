@@ -81,7 +81,7 @@ def test_cli_list(capsys):
 @pytest.mark.parametrize(
     "preset,kwargs",
     [
-        ("chess_tmgcn2_cls", {}),
+        ("chess_evolvegcn2_cls", {}),
         ("chess_tmgcn_lp", {}),
         ("chess_tmgcn_cls", {"checkpoint_dir": "ck"}),
         ("chess_tmgcn_cls", {"mesh_shape": (2, 1)}),

@@ -201,9 +201,12 @@ class TestOperator:
         np.testing.assert_allclose(out.numpy(), ref, atol=ATOL)
 
     @pytest.mark.parametrize(
-        "kwargs", [{"fast": True}, {"gather_dtype": "bfloat16"}, {"tile_dedup": True}]
+        "kwargs",
+        [{"fast": True}, {"fast": True, "gather_dtype": "bfloat16"},
+         {"fast": True, "tile_dedup": True}],
     )
     def test_unported_tiers_raise(self, small_graph, kwargs):
+        """The fast tier is not ported, alone or with the bf16 or tiled packings."""
         dense, _, _ = small_graph
-        with pytest.raises(NotImplementedError):
+        with pytest.raises(NotImplementedError, match="fast tier"):
             tk.make_operator(TemporalCOO.from_dense(dense), **kwargs)

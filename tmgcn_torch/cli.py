@@ -4,6 +4,8 @@
     python -m tmgcn_torch.cli run chess_tmgcn_cls --data-dir data/chess \
         --spmm-impl pallas --epochs 200 --out results_torch/
     python -m tmgcn_torch.cli run chess_wdgcn_cls --data-dir data/chess --epochs 200
+    python -m tmgcn_torch.cli run chess_tmgcn2_cls --data-dir data/chess \
+        --spmm-impl pallas_bf16 --epochs 200
 
 ``run`` uses the card (``--device cuda``, the default) and fails if there
 is none; ``--device cpu`` runs the plain PyTorch path on the CPU. The JAX
@@ -91,8 +93,10 @@ def main(argv=None) -> int:
     rp.add_argument("--out")
     rp.add_argument(
         "--spmm-impl",
-        choices=["jnp", "pallas"],
-        help="override the preset's SpMM implementation (pallas = the CUDA kernel)",
+        choices=["jnp", "rowsplit", "pallas", "pallas_bf16", "pallas_tiled",
+                 "pallas_tiled_bf16", "blockdense", "blockdense_bf16"],
+        help="override the preset's SpMM implementation (pallas* = the CUDA kernels: "
+             "K1, its bf16-gather tier, K3 and its bf16 tier)",
     )
     rp.add_argument("--seed", type=int)
     rp.add_argument(

@@ -1,6 +1,6 @@
 """Experiment assembly: config -> data -> adapter -> training run (port of
 tmgcn_tpu.configs.build, registry datasets and edge classification with
-1-layer TM-GCN or WD-GCN).
+TM-GCN (1 or 2 layers) or WD-GCN).
 
 Turns an :class:`ExperimentConfig` into a run, reproducing the reference
 experiment-script semantics: tmgcn consumes the M-transformed windows Ct with shifted
@@ -22,7 +22,7 @@ import torch
 
 from tmgcn_torch.configs.schema import ExperimentConfig
 from tmgcn_torch.core.sparse import TemporalCOO
-from tmgcn_torch.models.tmgcn import TMGCN
+from tmgcn_torch.models.tmgcn import TMGCN, TMGCN2
 from tmgcn_torch.models.wdgcn import WDGCN
 from tmgcn_torch.ops.degree import degree_features_np
 from tmgcn_torch.preprocess import datasets as dsets
@@ -158,23 +158,34 @@ def build_data(
 
 
 def _check_ported(cfg: ExperimentConfig) -> None:
-    ported = cfg.task == "edge_cls" and (
-        (cfg.method == "tmgcn" and cfg.n_layers == 1) or cfg.method == "wdgcn"
-    )
+    ported = cfg.task == "edge_cls" and cfg.method in ("tmgcn", "wdgcn")
     if not ported:
         raise NotImplementedError(
-            f"only 1-layer TM-GCN and WD-GCN edge classification are ported yet, not "
+            f"only TM-GCN and WD-GCN edge classification are ported yet, not "
             f"{cfg.method} ({cfg.n_layers} layers) {cfg.task} (ROADMAP queue 1)"
         )
 
 
-def build_model(cfg: ExperimentConfig, n_slices: int, in_feat: int) -> TMGCN | WDGCN:
+def build_model(cfg: ExperimentConfig, n_slices: int, in_feat: int) -> TMGCN | TMGCN2 | WDGCN:
     _check_ported(cfg)
     if cfg.method == "wdgcn":
         return WDGCN(
             n_slices=n_slices,
             in_feat=in_feat,
             hidden_feat=tuple(cfg.hidden_feat),
+            dtype=getattr(torch, cfg.dtype),
+            spmm_impl=cfg.spmm_impl,
+        )
+    if cfg.n_layers == 2:
+        return TMGCN2(
+            n_slices=n_slices,
+            in_feat=in_feat,
+            hidden_feat=tuple(cfg.hidden_feat),
+            condensed_W=cfg.condensed_W,
+            use_Minv=cfg.use_Minv,
+            apply_M_twice=cfg.apply_M_twice,
+            apply_M_three_times=cfg.apply_M_three_times,
+            nonlin2=cfg.nonlin2,
             dtype=getattr(torch, cfg.dtype),
             spmm_impl=cfg.spmm_impl,
         )
@@ -196,7 +207,8 @@ def params_from_jax(tree: dict) -> dict:
     Takes a flat parameter dict, or a whole variable tree such as WD-GCN's
     ``{"params": {"W", "lstm": {...}}, "buffers": {...}}``, and returns the
     same tree of tensors. The ported models keep the JAX package's names
-    and layouts (TMGCN's W (F0, F1) and U (2·F1, C); WDGCN's W, per-gate
+    and layouts (TMGCN's W (F0, F1) and U (2·F1, C); TMGCN2's W1, W2 and
+    U (2·F2, C); WDGCN's W, per-gate
     LSTM weights and frozen U, h_init, c_init), so each array is copied as
     it is, dtype kept, onto the CPU; the training loop moves them to its
     device.

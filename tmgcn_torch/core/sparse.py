@@ -33,6 +33,13 @@ def as_numpy(x) -> np.ndarray:
     return np.asarray(x)
 
 
+def to_device(x, device: str | torch.device) -> torch.Tensor:
+    """A numpy array or a tensor as a tensor on ``device`` (dtype kept)."""
+    if isinstance(x, torch.Tensor):
+        return x.to(device)
+    return torch.from_numpy(np.ascontiguousarray(x)).to(device)
+
+
 @dataclasses.dataclass(frozen=True)
 class TemporalCOO:
     """A T x N x N temporal sparse tensor in padded, row-sorted COO form.
@@ -160,17 +167,11 @@ class TemporalCOO:
 
     def to(self, device: str | torch.device) -> "TemporalCOO":
         """The same tensor as torch tensors on ``device`` (dtypes kept)."""
-
-        def move(x):
-            if isinstance(x, torch.Tensor):
-                return x.to(device)
-            return torch.from_numpy(np.ascontiguousarray(x)).to(device)
-
         return TemporalCOO(
-            rows=move(self.rows),
-            cols=move(self.cols),
-            vals=move(self.vals),
-            nnz=move(self.nnz),
+            rows=to_device(self.rows, device),
+            cols=to_device(self.cols, device),
+            vals=to_device(self.vals, device),
+            nnz=to_device(self.nnz, device),
             n_nodes=self.n_nodes,
         )
 

@@ -24,7 +24,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "tmgcn_torch_kernels"
-SOURCES = ("windowed_segment_matmul.cu",)
+SOURCES = ("windowed_segment_matmul.cu", "windowed_tiled_segment_matmul.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
@@ -46,9 +46,10 @@ def _nvcc() -> str:
 
 
 def library_path(source: str) -> Path:
-    """Where the library of one source lives: keyed by source and flags."""
+    """Where the library of one source lives: keyed by source, headers and flags."""
+    headers = b"".join(p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
     digest = hashlib.sha256(
-        (CSRC / source).read_bytes() + " ".join(NVCC_FLAGS).encode()
+        (CSRC / source).read_bytes() + headers + " ".join(NVCC_FLAGS).encode()
     ).hexdigest()[:16]
     return BUILD_DIR / f"lib{Path(source).stem}_{digest}.so"
 

@@ -38,16 +38,24 @@
 //
 // write_empty == 0 (the caller passes a zero-initialised `init` as out):
 // windows with no chunk are not written. Otherwise they are written as 0.
+//
+// K1 has two tiers (tiers.cuh): float32, and the bf16-gather tier of
+// tmgcn_tpu/kernels/spmm_pallas.py:827-840 (gathered features in bf16, each
+// product rounded to bf16, float32 sums and output), which halves the bytes
+// of the gathered chunks, the largest input. K2 has the float32 tier only,
+// as its one user needs.
 
 #include <cuda_runtime.h>
 
+#include "tiers.cuh"
+
 namespace {
 
-template <int FT, bool kLaneMajor>
-__global__ void windowed_segment_matmul_f32_kernel(
+template <int FT, bool kLaneMajor, typename TIn>
+__global__ void windowed_segment_matmul_kernel(
     const int* __restrict__ rows,        // (J, chunk) window-relative rows
     const float* __restrict__ vals,      // (J, chunk)
-    const float* __restrict__ gathered,  // K1 (J, chunk, n_feat); K2 (J, n_feat, chunk)
+    const TIn* __restrict__ gathered,    // K1 (J, chunk, n_feat); K2 (J, n_feat, chunk)
     const int* __restrict__ window_ptr,  // (n_windows + 1) chunk offsets
     float* __restrict__ out,             // K1 (n_rows_out, n_feat); K2 (n_feat, n_rows_out)
     int chunk, int n_feat, int window, int write_empty) {
@@ -73,7 +81,7 @@ __global__ void windowed_segment_matmul_f32_kernel(
     const size_t base = static_cast<size_t>(j) * chunk;
     for (int c = threadIdx.x; c < chunk; c += blockDim.x) {
       s_rows[c] = rows[base + c];
-      s_vals[c] = vals[base + c];
+      s_vals[c] = Tier<TIn>::round(vals[base + c]);  // the value in the gather's type
     }
     if (kLaneMajor) {
       // (n_feat, chunk) slab of chunk j: consecutive threads, consecutive c.
@@ -82,13 +90,14 @@ __global__ void windowed_segment_matmul_f32_kernel(
         const int k = i / chunk;
         const int c = i - k * chunk;
         s_g[c * FT + k] =
-            (k < nf) ? gathered[slab + static_cast<size_t>(f0 + k) * chunk + c] : 0.0f;
+            (k < nf) ? Tier<TIn>::load(gathered[slab + static_cast<size_t>(f0 + k) * chunk + c])
+                     : 0.0f;
       }
     } else {
       for (int i = threadIdx.x; i < chunk * FT; i += blockDim.x) {
         const int c = i / FT;
         const int k = i - c * FT;
-        s_g[i] = (k < nf) ? gathered[(base + c) * n_feat + f0 + k] : 0.0f;
+        s_g[i] = (k < nf) ? Tier<TIn>::load(gathered[(base + c) * n_feat + f0 + k]) : 0.0f;
       }
     }
     __syncthreads();
@@ -98,9 +107,10 @@ __global__ void windowed_segment_matmul_f32_kernel(
           const float v = s_vals[c];
 #pragma unroll
           for (int k = 0; k < FT; ++k) {
-            // Product rounded first, then added: no fused multiply-add, so
-            // the sum matches the plain version's scaled-then-summed order.
-            acc[k] = __fadd_rn(acc[k], __fmul_rn(v, s_g[c * FT + k]));
+            // Product rounded first (to the tier's type), then added: no
+            // fused multiply-add, so the sum matches the plain version's
+            // scaled-then-summed order.
+            acc[k] = __fadd_rn(acc[k], Tier<TIn>::round(__fmul_rn(v, s_g[c * FT + k])));
           }
         }
       }
@@ -124,26 +134,26 @@ __global__ void windowed_segment_matmul_f32_kernel(
   }
 }
 
-template <int FT, bool kLaneMajor>
-cudaError_t launch(const int* rows, const float* vals, const float* gathered,
+template <int FT, bool kLaneMajor, typename TIn>
+cudaError_t launch(const int* rows, const float* vals, const TIn* gathered,
                    const int* window_ptr, float* out, int n_windows, int chunk,
                    int n_feat, int window, int write_empty, cudaStream_t stream) {
   const size_t smem = static_cast<size_t>(chunk) * (sizeof(int) + sizeof(float)) +
                       static_cast<size_t>(chunk) * FT * sizeof(float);
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        windowed_segment_matmul_f32_kernel<FT, kLaneMajor>,
+        windowed_segment_matmul_kernel<FT, kLaneMajor, TIn>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (err != cudaSuccess) return err;
   }
   const dim3 grid(n_windows, (n_feat + FT - 1) / FT);
   const int threads = ((window + 31) / 32) * 32;
-  windowed_segment_matmul_f32_kernel<FT, kLaneMajor><<<grid, threads, smem, stream>>>(
+  windowed_segment_matmul_kernel<FT, kLaneMajor, TIn><<<grid, threads, smem, stream>>>(
       rows, vals, gathered, window_ptr, out, chunk, n_feat, window, write_empty);
   return cudaGetLastError();
 }
 
-template <bool kLaneMajor>
+template <bool kLaneMajor, typename TIn>
 int dispatch(const void* rows, const void* vals, const void* gathered,
              const void* window_ptr, void* out, int n_windows, int chunk, int n_feat,
              int window, int write_empty, void* stream) {
@@ -152,17 +162,17 @@ int dispatch(const void* rows, const void* vals, const void* gathered,
     return cudaErrorInvalidValue;
   const int* r = static_cast<const int*>(rows);
   const float* v = static_cast<const float*>(vals);
-  const float* g = static_cast<const float*>(gathered);
+  const TIn* g = static_cast<const TIn*>(gathered);
   const int* p = static_cast<const int*>(window_ptr);
   float* o = static_cast<float*>(out);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (n_feat == 1)
-    return launch<1, kLaneMajor>(r, v, g, p, o, n_windows, chunk, n_feat, window, write_empty, s);
+    return launch<1, kLaneMajor, TIn>(r, v, g, p, o, n_windows, chunk, n_feat, window, write_empty, s);
   if (n_feat == 2)
-    return launch<2, kLaneMajor>(r, v, g, p, o, n_windows, chunk, n_feat, window, write_empty, s);
+    return launch<2, kLaneMajor, TIn>(r, v, g, p, o, n_windows, chunk, n_feat, window, write_empty, s);
   if (n_feat <= 4)
-    return launch<4, kLaneMajor>(r, v, g, p, o, n_windows, chunk, n_feat, window, write_empty, s);
-  return launch<8, kLaneMajor>(r, v, g, p, o, n_windows, chunk, n_feat, window, write_empty, s);
+    return launch<4, kLaneMajor, TIn>(r, v, g, p, o, n_windows, chunk, n_feat, window, write_empty, s);
+  return launch<8, kLaneMajor, TIn>(r, v, g, p, o, n_windows, chunk, n_feat, window, write_empty, s);
 }
 
 }  // namespace
@@ -172,7 +182,7 @@ extern "C" int tmgcn_windowed_segment_matmul_f32(
     const void* rows, const void* vals, const void* gathered,
     const void* window_ptr, void* out, int n_windows, int chunk, int n_feat,
     int window, int write_empty, void* stream) {
-  return dispatch<false>(rows, vals, gathered, window_ptr, out, n_windows, chunk,
+  return dispatch<false, float>(rows, vals, gathered, window_ptr, out, n_windows, chunk,
                          n_feat, window, write_empty, stream);
 }
 
@@ -181,6 +191,15 @@ extern "C" int tmgcn_windowed_segment_matmul_t_f32(
     const void* rows, const void* vals, const void* gathered_t,
     const void* window_ptr, void* out, int n_windows, int chunk, int n_feat,
     int window, int write_empty, void* stream) {
-  return dispatch<true>(rows, vals, gathered_t, window_ptr, out, n_windows, chunk,
+  return dispatch<true, float>(rows, vals, gathered_t, window_ptr, out, n_windows, chunk,
                         n_feat, window, write_empty, stream);
+}
+
+// K1, bf16-gather tier: gathered (J, chunk, n_feat) bf16 -> out float32.
+extern "C" int tmgcn_windowed_segment_matmul_bf16(
+    const void* rows, const void* vals, const void* gathered,
+    const void* window_ptr, void* out, int n_windows, int chunk, int n_feat,
+    int window, int write_empty, void* stream) {
+  return dispatch<false, __nv_bfloat16>(rows, vals, gathered, window_ptr, out, n_windows,
+                                        chunk, n_feat, window, write_empty, stream);
 }

@@ -16,22 +16,32 @@ tmgcn_tpu/kernels/spmm_pallas.py:608-721) and takes the same host packing:
     deterministic, no float atomics. What bounds it, and what its design
     does about that, is noted at the top of the CUDA source.
 
-``windowed_segment_matmul`` launches the kernel for a CUDA tensor and
-raises where it cannot; it takes the plain PyTorch version
-``windowed_segment_matmul_reference`` only for a tensor on the CPU. The
-operator's ``torch.autograd.Function`` runs the backward dX = Aᵀ dY as the
-same kernel on the transposed packing.
+K1 has the JAX package's exact float32 tier and its bf16-gather tier
+(``gather_dtype="bfloat16"``: X is cast to bf16 before the gather, each
+product is rounded to bf16 and summed in float32, the output is float32),
+two entry points of one kernel template with a launch count each
+(``windowed_segment_matmul.launches`` and ``.launches_bf16``). Its ``fast``
+tier (float32 at the TPU's DEFAULT matrix precision, reached only by the
+JAX package's utils/spmm_bench.py) is not ported: asking for it raises
+NotImplementedError (ROADMAP queue 2).
 
 K2, ``windowed_segment_matmul_t``, is the same sums with the layout
 transposed — (J, F, C) chunks in, (F, n_rows_out) out — and replaces the
 Pallas kernel ``windowed_segment_matmul_t`` (body ``_scatter_kernel_t``,
 tmgcn_tpu/kernels/spmm_pallas.py:724-824). Its one user is the
 ``ReadoutPlan`` backward past ``LANE_MAJOR_BYTES`` (ops/edge_readout.py).
-Its plain version is ``windowed_segment_matmul_t_reference``.
 
-Ported so far: the exact float32 tier of K1, and K2. The ``fast`` and
-bf16-gather tiers of K1 and the tile-dedup K3 are still to port (ROADMAP
-queue 2); asking for them raises NotImplementedError.
+K3, ``windowed_tiled_segment_matmul`` (``csrc/windowed_tiled_segment_matmul.cu``),
+replaces the Pallas kernel of the same name (body ``_tiled_scatter_kernel``,
+tmgcn_tpu/kernels/spmm_pallas.py:510-605) over the tile-dedup packing
+``PackedTiled``: each chunk's distinct 8-row tiles of X are gathered once,
+and the kernel reads each entry's row from that block by ``uidx``. Float32
+and bf16 tiers, launch counts ``.launches`` and ``.launches_bf16``.
+
+Every kernel wrapper launches its kernel for a CUDA tensor and raises where
+it cannot; it takes its plain PyTorch version (``*_reference``) only for a
+tensor on the CPU. The operators' ``torch.autograd.Function`` runs the
+backward dX = Aᵀ dY as the same kernel on the transposed packing.
 """
 
 from __future__ import annotations
@@ -43,12 +53,20 @@ import functools
 import numpy as np
 import torch
 
-from tmgcn_torch.core.sparse import TemporalCOO, as_numpy
+from tmgcn_torch.core.sparse import TemporalCOO, to_device
 from tmgcn_torch.kernels.build import load_library
+from tmgcn_torch.ops.spmm_rowsplit import flatten_stream
 
 DEFAULT_CHUNK = 256
 DEFAULT_WINDOW = 256
 MAX_WINDOW = 1024  # one thread per output row of a window
+MAX_SMEM = 227 * 1024  # shared memory one block may use on the H100
+GATHER_DTYPES = {None: None, "bfloat16": torch.bfloat16}
+
+
+def _window_ptr(wid: np.ndarray, n_windows: int) -> np.ndarray:
+    """Chunk offsets of each window in a window-sorted chunk stream."""
+    return np.searchsorted(wid, np.arange(n_windows + 1), side="left").astype(np.int32)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -88,20 +106,14 @@ class PackedSpmm:
 
     def to(self, device: str | torch.device) -> "PackedSpmm":
         """The same packing as torch tensors on ``device`` (dtypes kept)."""
-
-        def move(x):
-            if isinstance(x, torch.Tensor):
-                return x.to(device)
-            return torch.from_numpy(np.ascontiguousarray(x)).to(device)
-
         return dataclasses.replace(
             self,
-            rows=move(self.rows),
-            cols=move(self.cols),
-            vals=move(self.vals),
-            window_id=move(self.window_id),
-            is_first=move(self.is_first),
-            window_ptr=move(self.window_ptr),
+            rows=to_device(self.rows, device),
+            cols=to_device(self.cols, device),
+            vals=to_device(self.vals, device),
+            window_id=to_device(self.window_id, device),
+            is_first=to_device(self.is_first, device),
+            window_ptr=to_device(self.window_ptr, device),
         )
 
 
@@ -116,23 +128,10 @@ def pack_windowed(
     Flattens slices (global rows t*N + r, global cols t*N + c), then
     packs the flat stream (see pack_windowed_flat).
     """
-    rows_np = as_numpy(A.rows)
-    cols_np = as_numpy(A.cols)
-    vals_np = as_numpy(A.vals)
-    nnz_np = as_numpy(A.nnz)
-    T = A.n_slices
-    N = A.n_nodes
-
-    parts_r, parts_c, parts_v = [], [], []
-    for t in range(T):
-        n = int(nnz_np[t])
-        parts_r.append(rows_np[t, :n].astype(np.int64) + t * N)
-        parts_c.append(cols_np[t, :n].astype(np.int64) + t * N)
-        parts_v.append(vals_np[t, :n])
-    g_rows = np.concatenate(parts_r) if parts_r else np.zeros(0, np.int64)
-    g_cols = np.concatenate(parts_c) if parts_c else np.zeros(0, np.int64)
-    g_vals = np.concatenate(parts_v) if parts_v else np.zeros(0, vals_np.dtype)
-    return pack_windowed_flat(g_rows, g_cols, g_vals, T * N, chunk, window, sort_cols)
+    g_rows, g_cols, g_vals = flatten_stream(A)
+    return pack_windowed_flat(
+        g_rows, g_cols, g_vals, A.n_slices * A.n_nodes, chunk, window, sort_cols
+    )
 
 
 def pack_windowed_flat(
@@ -211,7 +210,6 @@ def pack_windowed_flat(
     vals_out[j_of_entry, slot] = g_vals
     wid_out = chunk_wid[order].astype(np.int32)
     first_out = np.r_[True, wid_out[1:] != wid_out[:-1]].astype(np.int32)[:J]
-    window_ptr = np.searchsorted(wid_out, np.arange(n_windows + 1), side="left")
 
     return PackedSpmm(
         rows=rows_out,
@@ -219,10 +217,174 @@ def pack_windowed_flat(
         vals=vals_out,
         window_id=wid_out,
         is_first=first_out,
-        window_ptr=window_ptr.astype(np.int32),
+        window_ptr=_window_ptr(wid_out, n_windows),
         n_rows_out=int(n_rows_out),
         chunk=chunk,
         window=window,
+    )
+
+
+@dataclasses.dataclass(frozen=True)
+class PackedTiled:
+    """Tile-deduplicated chunk stream for K3 (the JAX package's PackedTiled).
+
+    Entries are (window, col)-sorted and each chunk gathers its distinct
+    8-row tiles of X once, as contiguous (8, F) row groups.
+
+    rows: (J, C) int32 — window-relative output row per entry (0 pad).
+    uidx: (J, C) int32 — per-entry row in the chunk's gathered tile block:
+        tile_position * 8 + (col % 8); 0 on padding (val 0).
+    tiles: (J, ut_cap) int32 — distinct global tile ids (col // 8) of the
+        chunk, padded with 0 (padded tiles are never referenced by uidx).
+    vals / window_id / is_first / window_ptr / n_rows_out / chunk /
+        window: as PackedSpmm. ut_cap: the per-chunk distinct-tile budget;
+        a chunk is cut early where one more entry would exceed it.
+
+    The arrays are numpy on the host, or torch tensors after ``to``.
+    """
+
+    rows: np.ndarray | torch.Tensor
+    uidx: np.ndarray | torch.Tensor
+    tiles: np.ndarray | torch.Tensor
+    vals: np.ndarray | torch.Tensor
+    window_id: np.ndarray | torch.Tensor
+    is_first: np.ndarray | torch.Tensor
+    window_ptr: np.ndarray | torch.Tensor
+    n_rows_out: int
+    chunk: int
+    window: int
+    ut_cap: int
+
+    @property
+    def n_chunks(self) -> int:
+        return self.rows.shape[0]
+
+    @property
+    def n_windows(self) -> int:
+        return self.n_rows_out // self.window
+
+    def to(self, device: str | torch.device) -> "PackedTiled":
+        """The same packing as torch tensors on ``device`` (dtypes kept)."""
+        return dataclasses.replace(
+            self,
+            rows=to_device(self.rows, device),
+            uidx=to_device(self.uidx, device),
+            tiles=to_device(self.tiles, device),
+            vals=to_device(self.vals, device),
+            window_id=to_device(self.window_id, device),
+            is_first=to_device(self.is_first, device),
+            window_ptr=to_device(self.window_ptr, device),
+        )
+
+
+def pack_windowed_tiled_flat(
+    g_rows: np.ndarray,
+    g_cols: np.ndarray,
+    g_vals: np.ndarray,
+    n_out: int,
+    chunk: int = DEFAULT_CHUNK,
+    window: int = DEFAULT_WINDOW,
+    ut_cap: int = 64,
+    all_windows: bool = True,
+) -> PackedTiled:
+    """Pack a flat entry stream with per-chunk distinct-tile budgeting.
+
+    Rows must be sorted ascending and < n_out. Entries are re-sorted by
+    (window, col): distinct tiles are then runs. Chunks are cut at
+    ``chunk`` entries, at a window boundary, or where the distinct-tile
+    count would exceed ``ut_cap``. The same packing as the JAX package's,
+    with the chunk cuts found from run offsets and the arrays filled with
+    vectorized numpy.
+    """
+    if ut_cap < 1:
+        raise ValueError(f"ut_cap must be >= 1, got {ut_cap}")
+    g_rows = np.asarray(g_rows, np.int64)
+    g_cols = np.asarray(g_cols, np.int64)
+    g_vals = np.asarray(g_vals)
+    n_rows_out = ((n_out + window - 1) // window) * window
+    n_windows = n_rows_out // window
+    P = len(g_rows)
+    if P and (g_rows.min() < 0 or g_rows.max() >= n_out):
+        raise ValueError(f"rows must lie in [0, {n_out})")
+    if P:
+        order = np.lexsort((g_cols, g_rows // window))
+        g_rows, g_cols, g_vals = g_rows[order], g_cols[order], g_vals[order]
+    wid = g_rows // window
+    tid = g_cols // 8
+
+    # Runs of equal (window, tile): a stretch of one window holds as many
+    # distinct tiles as the runs it meets.
+    new_run = np.r_[True, (wid[1:] != wid[:-1]) | (tid[1:] != tid[:-1])] if P \
+        else np.zeros(0, bool)
+    run_of = np.cumsum(new_run) - 1
+    run_start = np.flatnonzero(new_run)
+    seg_start = np.flatnonzero(np.r_[True, wid[1:] != wid[:-1]]) if P else np.zeros(0, np.int64)
+    seg_end = np.r_[seg_start[1:], P].astype(np.int64)
+
+    starts = []
+    n_runs = len(run_start)
+    for s, e in zip(seg_start.tolist(), seg_end.tolist()):
+        cs = s
+        while cs < e:
+            ce = min(cs + chunk, e)
+            k = int(run_of[cs]) + ut_cap  # the first run past the budget
+            if k < n_runs and run_start[k] < ce:
+                ce = int(run_start[k])
+            starts.append(cs)
+            cs = ce
+    starts = np.asarray(starts, np.int64)
+    lens = np.diff(np.r_[starts, P]).astype(np.int64)
+    chunk_wid = wid[starts]
+    if all_windows:
+        touched = np.zeros(n_windows, bool)
+        touched[chunk_wid] = True
+        chunk_wid = np.r_[chunk_wid, np.flatnonzero(~touched)]
+
+    order = np.argsort(chunk_wid, kind="stable")
+    J = len(order)
+    position = np.empty(J, np.int64)
+    position[order] = np.arange(J)
+    chunk_of_entry = np.repeat(np.arange(len(starts)), lens)
+    j_of_entry = position[chunk_of_entry]
+    slot = np.arange(P) - starts[chunk_of_entry]
+    local_run = run_of - run_of[starts][chunk_of_entry]
+
+    rows_out = np.zeros((J, chunk), np.int32)
+    uidx_out = np.zeros((J, chunk), np.int32)
+    tiles_out = np.zeros((J, ut_cap), np.int32)
+    vals_out = np.zeros((J, chunk), g_vals.dtype)
+    rows_out[j_of_entry, slot] = g_rows - wid * window
+    uidx_out[j_of_entry, slot] = local_run * 8 + g_cols % 8
+    tiles_out[j_of_entry, local_run] = tid
+    vals_out[j_of_entry, slot] = g_vals
+    wid_out = chunk_wid[order].astype(np.int32)
+    first_out = np.r_[True, wid_out[1:] != wid_out[:-1]].astype(np.int32)[:J]
+
+    return PackedTiled(
+        rows=rows_out,
+        uidx=uidx_out,
+        tiles=tiles_out,
+        vals=vals_out,
+        window_id=wid_out,
+        is_first=first_out,
+        window_ptr=_window_ptr(wid_out, n_windows),
+        n_rows_out=int(n_rows_out),
+        chunk=chunk,
+        window=window,
+        ut_cap=ut_cap,
+    )
+
+
+def pack_windowed_tiled(
+    A: TemporalCOO,
+    chunk: int = DEFAULT_CHUNK,
+    window: int = DEFAULT_WINDOW,
+    ut_cap: int = 64,
+) -> PackedTiled:
+    """Tile-dedup packing of a temporal COO tensor (host-side, once)."""
+    g_rows, g_cols, g_vals = flatten_stream(A)
+    return pack_windowed_tiled_flat(
+        g_rows, g_cols, g_vals, A.n_slices * A.n_nodes, chunk, window, ut_cap
     )
 
 
@@ -235,7 +397,9 @@ def windowed_segment_matmul_reference(
     """Plain PyTorch version of K1: (J, C, F) gathered -> (n_rows_out, F).
 
     out[w*W + r] = Σ over the chunks of window w and their entries with
-    row r of vals * gathered. Windows without a chunk are 0, or, with
+    row r of vals * gathered, each product rounded to gathered's type
+    (bf16 products for bf16 chunks, as the TPU kernel's bf16 ``g * v``),
+    then summed in ``out_dtype``. Windows without a chunk are 0, or, with
     ``init``, keep init's content: init is written in place and returned,
     as the kernel does.
     """
@@ -277,11 +441,29 @@ def windowed_segment_matmul_t_reference(
     return out.T.contiguous() if init is None else init
 
 
+def windowed_tiled_segment_matmul_reference(
+    packed: PackedTiled,
+    gathered: torch.Tensor,
+    out_dtype: torch.dtype | None = None,
+) -> torch.Tensor:
+    """Plain PyTorch version of K3: (J, U8, F) tile blocks -> (n_rows_out, F).
+
+    Each entry's row is read from its chunk's block by ``uidx`` (the TPU
+    kernel's one-hot expand), then K1's plain version sums them: the same
+    products, rounded to gathered's type, summed in ``out_dtype``.
+    """
+    J, C = packed.rows.shape
+    F = gathered.shape[-1]
+    uidx = torch.as_tensor(packed.uidx, device=gathered.device).long()
+    per_entry = torch.gather(gathered, 1, uidx[..., None].expand(J, C, F))
+    return windowed_segment_matmul_reference(packed, per_entry, out_dtype)
+
+
 @functools.cache
-def _kernel(symbol: str):
-    """The ctypes entry point of K1 or K2, with its argument types."""
-    fn = getattr(load_library("windowed_segment_matmul.cu"), symbol)
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+def _kernel(source: str, symbol: str, n_ptr: int, n_int: int):
+    """The ctypes entry point of a kernel, with its argument types."""
+    fn = getattr(load_library(source), symbol)
+    fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -295,70 +477,33 @@ def _check_cuda(name: str, t: torch.Tensor, dtype: torch.dtype, device: torch.de
         raise ValueError(f"{name} must be contiguous")
 
 
-def windowed_segment_matmul(
-    packed: PackedSpmm,
-    gathered: torch.Tensor,
-    out_dtype: torch.dtype | None = None,
-    init: torch.Tensor | None = None,
+def _check_tier(gathered: torch.Tensor, out_dtype: torch.dtype | None, tiers) -> None:
+    """The kernels read float32 or bf16 (where ``tiers`` has it) and write float32."""
+    out_dtype = gathered.dtype if out_dtype is None else out_dtype
+    if gathered.dtype not in tiers or out_dtype != torch.float32:
+        raise NotImplementedError(
+            f"no kernel tier reads {gathered.dtype} and writes {out_dtype}: the kernels read "
+            f"{' or '.join(str(t) for t in tiers)} and write torch.float32"
+        )
+
+
+def _output(
+    packed, out_shape: tuple[int, int], init: torch.Tensor | None, device: torch.device
 ) -> torch.Tensor:
-    """K1: (J, C, F) gathered chunks -> (n_rows_out, F) window segment sums.
-
-    On a CUDA tensor this launches the CUDA kernel (float32 in and out)
-    and raises on anything it does not take; on a CPU tensor it runs the
-    plain version. ``init``: a zero (n_rows_out, F) tensor used as the
-    output itself — windows without a chunk are not written. Required
-    with ``all_windows=False`` packings.
-    """
-    if gathered.device.type == "cpu":
-        return windowed_segment_matmul_reference(packed, gathered, out_dtype, init)
-    if gathered.device.type != "cuda":
-        raise ValueError(f"no kernel for device {gathered.device}")
-    F = gathered.shape[-1]
-    J, C = packed.rows.shape
-    if gathered.shape != (J, C, F) or F < 1:
-        raise ValueError(f"gathered must be ({J}, {C}, F>=1), got {tuple(gathered.shape)}")
-    out = _launch(
-        "tmgcn_windowed_segment_matmul_f32", packed, gathered, F, (packed.n_rows_out, F),
-        out_dtype, init,
-    )
-    windowed_segment_matmul.launches += 1
-    return out
-
-
-windowed_segment_matmul.launches = 0  # kernel launches, for run accounting
-
-
-def windowed_segment_matmul_t(
-    packed: PackedSpmm,
-    gathered_t: torch.Tensor,
-    out_dtype: torch.dtype | None = None,
-    init: torch.Tensor | None = None,
-) -> torch.Tensor:
-    """K2: (J, F, C) transposed chunks -> (F, n_rows_out) window segment sums.
-
-    The lane-major twin of ``windowed_segment_matmul``: the same sums, the
-    same ``init`` semantics (an (F, n_rows_out) zero tensor used as the
-    output itself; windows without a chunk are not written), the same
-    device policy (the kernel on a CUDA tensor, the plain version on a CPU
-    tensor, an error otherwise).
-    """
-    if gathered_t.device.type == "cpu":
-        return windowed_segment_matmul_t_reference(packed, gathered_t, out_dtype, init)
-    if gathered_t.device.type != "cuda":
-        raise ValueError(f"no kernel for device {gathered_t.device}")
-    J, C = packed.rows.shape
-    F = gathered_t.shape[1] if gathered_t.dim() == 3 else 0
-    if gathered_t.shape != (J, F, C) or F < 1:
-        raise ValueError(f"gathered_t must be ({J}, F>=1, {C}), got {tuple(gathered_t.shape)}")
-    out = _launch(
-        "tmgcn_windowed_segment_matmul_t_f32", packed, gathered_t, F, (F, packed.n_rows_out),
-        out_dtype, init,
-    )
-    windowed_segment_matmul_t.launches += 1
-    return out
-
-
-windowed_segment_matmul_t.launches = 0  # kernel launches, for run accounting
+    """Check the window layout; the caller's init, or a new float32 output."""
+    if packed.window > MAX_WINDOW:
+        raise ValueError(f"window {packed.window} > {MAX_WINDOW}")
+    _check_cuda("packed.rows", packed.rows, torch.int32, device)
+    _check_cuda("packed.vals", packed.vals, torch.float32, device)
+    _check_cuda("packed.window_ptr", packed.window_ptr, torch.int32, device)
+    if packed.window_ptr.shape != (packed.n_windows + 1,):
+        raise ValueError("packed.window_ptr must have n_windows + 1 entries")
+    if init is None:
+        return torch.empty(out_shape, dtype=torch.float32, device=device)
+    _check_cuda("init", init, torch.float32, device)
+    if tuple(init.shape) != out_shape:
+        raise ValueError(f"init must be {out_shape}")
+    return init
 
 
 def _launch(
@@ -367,36 +512,16 @@ def _launch(
     gathered: torch.Tensor,
     F: int,
     out_shape: tuple[int, int],
-    out_dtype: torch.dtype | None,
     init: torch.Tensor | None,
 ) -> torch.Tensor:
     """Check the arguments of K1 or K2 and launch it on the current stream."""
-    out_dtype = gathered.dtype if out_dtype is None else out_dtype
-    if gathered.dtype != torch.float32 or out_dtype != torch.float32:
-        raise NotImplementedError(
-            "the CUDA kernels take float32 in and out; the bf16-gather tier is "
-            "not ported yet (ROADMAP queue 2, K1)"
-        )
     device = gathered.device
-    if packed.window > MAX_WINDOW:
-        raise ValueError(f"window {packed.window} > {MAX_WINDOW}")
-    _check_cuda("gathered", gathered, torch.float32, device)
-    _check_cuda("packed.rows", packed.rows, torch.int32, device)
-    _check_cuda("packed.vals", packed.vals, torch.float32, device)
-    _check_cuda("packed.window_ptr", packed.window_ptr, torch.int32, device)
-    if packed.window_ptr.shape != (packed.n_windows + 1,):
-        raise ValueError("packed.window_ptr must have n_windows + 1 entries")
-    if init is not None:
-        _check_cuda("init", init, torch.float32, device)
-        if tuple(init.shape) != out_shape:
-            raise ValueError(f"init must be {out_shape}")
-        out = init
-    else:
-        out = torch.empty(out_shape, dtype=torch.float32, device=device)
+    _check_cuda("gathered", gathered, gathered.dtype, device)
+    out = _output(packed, out_shape, init, device)
     if packed.n_windows == 0:
         return out
     with torch.cuda.device(device):
-        err = _kernel(symbol)(
+        err = _kernel("windowed_segment_matmul.cu", symbol, 5, 5)(
             packed.rows.data_ptr(),
             packed.vals.data_ptr(),
             gathered.data_ptr(),
@@ -414,43 +539,297 @@ def _launch(
     return out
 
 
-def _flat_fwd_impl(n_out: int, packed: PackedSpmm, flat: torch.Tensor) -> torch.Tensor:
-    """(n_in, F) -> (n_out, F): gather rows by column id, then K1."""
+def windowed_segment_matmul(
+    packed: PackedSpmm,
+    gathered: torch.Tensor,
+    out_dtype: torch.dtype | None = None,
+    init: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """K1: (J, C, F) gathered chunks -> (n_rows_out, F) window segment sums.
+
+    On a CUDA tensor this launches the CUDA kernel — float32 chunks, or
+    bf16 chunks (the bf16-gather tier), float32 out — and raises on
+    anything it does not take; on a CPU tensor it runs the plain version.
+    ``init``: a zero (n_rows_out, F) float32 tensor used as the output
+    itself — windows without a chunk are not written. Required with
+    ``all_windows=False`` packings.
+    """
+    if gathered.device.type == "cpu":
+        return windowed_segment_matmul_reference(packed, gathered, out_dtype, init)
+    if gathered.device.type != "cuda":
+        raise ValueError(f"no kernel for device {gathered.device}")
+    _check_tier(gathered, out_dtype, (torch.float32, torch.bfloat16))
+    F = gathered.shape[-1]
+    J, C = packed.rows.shape
+    if gathered.shape != (J, C, F) or F < 1:
+        raise ValueError(f"gathered must be ({J}, {C}, F>=1), got {tuple(gathered.shape)}")
+    bf16 = gathered.dtype == torch.bfloat16
+    symbol = "tmgcn_windowed_segment_matmul_" + ("bf16" if bf16 else "f32")
+    out = _launch(symbol, packed, gathered, F, (packed.n_rows_out, F), init)
+    if bf16:
+        windowed_segment_matmul.launches_bf16 += 1
+    else:
+        windowed_segment_matmul.launches += 1
+    return out
+
+
+# Kernel launches of each tier, for run accounting.
+windowed_segment_matmul.launches = 0
+windowed_segment_matmul.launches_bf16 = 0
+
+
+def windowed_segment_matmul_t(
+    packed: PackedSpmm,
+    gathered_t: torch.Tensor,
+    out_dtype: torch.dtype | None = None,
+    init: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """K2: (J, F, C) transposed chunks -> (F, n_rows_out) window segment sums.
+
+    The lane-major twin of ``windowed_segment_matmul``: the same sums, the
+    same ``init`` semantics (an (F, n_rows_out) zero tensor used as the
+    output itself; windows without a chunk are not written), the same
+    device policy (the kernel on a CUDA tensor, the plain version on a CPU
+    tensor, an error otherwise). Float32 only.
+    """
+    if gathered_t.device.type == "cpu":
+        return windowed_segment_matmul_t_reference(packed, gathered_t, out_dtype, init)
+    if gathered_t.device.type != "cuda":
+        raise ValueError(f"no kernel for device {gathered_t.device}")
+    _check_tier(gathered_t, out_dtype, (torch.float32,))
+    J, C = packed.rows.shape
+    F = gathered_t.shape[1] if gathered_t.dim() == 3 else 0
+    if gathered_t.shape != (J, F, C) or F < 1:
+        raise ValueError(f"gathered_t must be ({J}, F>=1, {C}), got {tuple(gathered_t.shape)}")
+    out = _launch(
+        "tmgcn_windowed_segment_matmul_t_f32", packed, gathered_t, F, (F, packed.n_rows_out), init
+    )
+    windowed_segment_matmul_t.launches += 1
+    return out
+
+
+windowed_segment_matmul_t.launches = 0  # kernel launches, for run accounting
+
+
+def windowed_tiled_segment_matmul(
+    packed: PackedTiled,
+    gathered: torch.Tensor,
+    out_dtype: torch.dtype | None = None,
+) -> torch.Tensor:
+    """K3: (J, ut_cap * 8, F) distinct-tile blocks -> (n_rows_out, F) sums.
+
+    On a CUDA tensor this launches the CUDA kernel — float32 or bf16
+    blocks, float32 out, every window written (0 where it has no chunk) —
+    and raises on anything it does not take; on a CPU tensor it runs the
+    plain version.
+    """
+    if gathered.device.type == "cpu":
+        return windowed_tiled_segment_matmul_reference(packed, gathered, out_dtype)
+    if gathered.device.type != "cuda":
+        raise ValueError(f"no kernel for device {gathered.device}")
+    _check_tier(gathered, out_dtype, (torch.float32, torch.bfloat16))
+    J, C = packed.rows.shape
+    U8 = 8 * packed.ut_cap
+    F = gathered.shape[-1] if gathered.dim() == 3 else 0
+    if gathered.shape != (J, U8, F) or F < 1:
+        raise ValueError(f"gathered must be ({J}, {U8}, F>=1), got {tuple(gathered.shape)}")
+    ft = min(8, 1 << (F - 1).bit_length())  # the kernel's feature tile: 1, 2, 4 or 8
+    if C * 12 + U8 * ft * 4 > MAX_SMEM:
+        raise ValueError(f"chunk {C} with ut_cap {packed.ut_cap} does not fit in shared memory")
+    device = gathered.device
+    _check_cuda("gathered", gathered, gathered.dtype, device)
+    _check_cuda("packed.uidx", packed.uidx, torch.int32, device)
+    out = _output(packed, (packed.n_rows_out, F), None, device)
+    bf16 = gathered.dtype == torch.bfloat16
+    symbol = "tmgcn_windowed_tiled_segment_matmul_" + ("bf16" if bf16 else "f32")
+    if packed.n_windows:
+        with torch.cuda.device(device):
+            err = _kernel("windowed_tiled_segment_matmul.cu", symbol, 6, 5)(
+                packed.rows.data_ptr(),
+                packed.uidx.data_ptr(),
+                packed.vals.data_ptr(),
+                gathered.data_ptr(),
+                packed.window_ptr.data_ptr(),
+                out.data_ptr(),
+                packed.n_windows,
+                C,
+                U8,
+                F,
+                packed.window,
+                torch.cuda.current_stream(device).cuda_stream,
+            )
+        if err != 0:
+            raise RuntimeError(f"{symbol} launch failed: CUDA error {err}")
+    if bf16:
+        windowed_tiled_segment_matmul.launches_bf16 += 1
+    else:
+        windowed_tiled_segment_matmul.launches += 1
+    return out
+
+
+# Kernel launches of each tier, for run accounting.
+windowed_tiled_segment_matmul.launches = 0
+windowed_tiled_segment_matmul.launches_bf16 = 0
+
+
+def _gather_dtype(name: str | None) -> torch.dtype | None:
+    if name not in GATHER_DTYPES:
+        raise ValueError(f"gather_dtype must be one of {list(GATHER_DTYPES)}, got {name!r}")
+    return GATHER_DTYPES[name]
+
+
+def _check_fast(fast: bool) -> None:
+    if fast:
+        raise NotImplementedError(
+            "the fast tier of K1 (float32 at the TPU's DEFAULT matrix precision) is not "
+            "ported yet (ROADMAP queue 2, K1)"
+        )
+
+
+def gather_chunks(flat: torch.Tensor, packed: PackedSpmm | PackedTiled) -> torch.Tensor:
+    """The kernel input gathered from (n_in, F) rows: K1's (J, C, F) rows by
+    column id, or for a tiled packing K3's (J, ut_cap * 8, F) blocks of each
+    chunk's distinct 8-row tiles."""
     F = flat.shape[-1]
+    if isinstance(packed, PackedTiled):
+        # Tiles are rows of a (rows / 8, 8F) view; the JAX package pads the
+        # rows to a multiple of 64 (a TPU gather fault), where the view
+        # needs only 8.
+        pad = (-flat.shape[0]) % 64
+        if pad:
+            flat = torch.cat([flat, flat.new_zeros((pad, F))])
+        J, U_t = packed.tiles.shape
+        tiles = torch.as_tensor(packed.tiles, device=flat.device)
+        return flat.reshape(-1, 8 * F).index_select(0, tiles.reshape(-1)).reshape(J, U_t * 8, F)
     cols = torch.as_tensor(packed.cols, device=flat.device)
-    gathered = flat.index_select(0, cols.reshape(-1)).reshape(packed.n_chunks, packed.chunk, F)
-    return windowed_segment_matmul(packed, gathered, out_dtype=flat.dtype)[:n_out]
+    return flat.index_select(0, cols.reshape(-1)).reshape(packed.n_chunks, packed.chunk, F)
 
 
-class _SpmmPacked(torch.autograd.Function):
-    """Y = A ⊛ X through the packing; dX = Aᵀ dY through the transpose's."""
+def _flat_fwd_impl(
+    n_out: int, gather_dtype: str | None, packed: PackedSpmm | PackedTiled, flat: torch.Tensor
+) -> torch.Tensor:
+    """(n_in, F) -> (n_out, F): gather, then K1 (or K3 for a tiled packing)."""
+    out_dtype = flat.dtype
+    gdt = _gather_dtype(gather_dtype)
+    if gdt is not None:
+        # Cast before the gather, as the JAX package does: the gathered
+        # chunks, the kernel's largest input, move in bf16.
+        flat = flat.to(gdt)
+    gathered = gather_chunks(flat, packed)
+    if isinstance(packed, PackedTiled):
+        return windowed_tiled_segment_matmul(packed, gathered, out_dtype=out_dtype)[:n_out]
+    return windowed_segment_matmul(packed, gathered, out_dtype=out_dtype)[:n_out]
+
+
+class _FlatSpmm(torch.autograd.Function):
+    """(n_in, F) -> (n_out, F) through the packing; dX = Aᵀ dY through the transpose's."""
 
     @staticmethod
-    def forward(ctx, X, op):
+    def forward(ctx, flat, op):
         ctx.op = op
-        T, N, F = X.shape
-        return _flat_fwd_impl(T * N, op.packed, X.reshape(T * N, F)).reshape(T, N, F)
+        return _flat_fwd_impl(op.n_out, op.gather_dtype, op.packed, flat)
 
     @staticmethod
     def backward(ctx, dY):
         op = ctx.op
-        T, N, F = dY.shape
-        dX = _flat_fwd_impl(T * N, op.packed_t, dY.reshape(T * N, F))
-        return dX.reshape(T, N, F), None
+        return _flat_fwd_impl(op.n_in, op.gather_dtype, op.packed_t, dY), None
+
+
+@dataclasses.dataclass(frozen=True)
+class FlatPallasOperator:
+    """A prepacked rectangular flat operator: (n_in, F) -> (n_out, F).
+
+    The name is the JAX package's. The same kernels as
+    PallasSpmmOperator over an arbitrary (row, col) entry stream whose
+    rows index another space than its columns — the readout-restricted
+    layer-2 operator of tasks/adapters.py.
+    """
+
+    n_in: int
+    n_out: int
+    packed: PackedSpmm | PackedTiled
+    packed_t: PackedSpmm | PackedTiled
+    fast: bool = False
+    gather_dtype: str | None = None
+
+    def __post_init__(self):
+        _check_fast(self.fast)
+        _gather_dtype(self.gather_dtype)
+
+    def to(self, device: str | torch.device) -> "FlatPallasOperator":
+        return dataclasses.replace(
+            self, packed=self.packed.to(device), packed_t=self.packed_t.to(device)
+        )
+
+    def __call__(self, flat: torch.Tensor) -> torch.Tensor:
+        return _FlatSpmm.apply(flat, self)
+
+
+def make_flat_operator(
+    rows: np.ndarray,
+    cols: np.ndarray,
+    vals: np.ndarray,
+    n_in: int,
+    n_out: int,
+    chunk: int = DEFAULT_CHUNK,
+    window: int = DEFAULT_WINDOW,
+    fast: bool = False,
+    gather_dtype: str | None = None,
+    sort_cols: bool = False,
+    tile_dedup: bool = False,
+    ut_cap: int = 64,
+) -> FlatPallasOperator:
+    """Prepack a rectangular flat operator (host-side, once).
+
+    rows (< n_out) need not be pre-sorted; the stream is row-sorted here.
+    The transpose packing (cols as rows, < n_in) powers the backward.
+    tile_dedup packs for K3 (PackedTiled); sort_cols is implied there.
+    """
+    _check_fast(fast)
+    rows = np.asarray(rows, np.int64)
+    cols = np.asarray(cols, np.int64)
+    vals = np.asarray(vals)
+    order = np.argsort(rows, kind="stable")
+    order_t = np.argsort(cols, kind="stable")
+    if tile_dedup:
+        packed = pack_windowed_tiled_flat(
+            rows[order], cols[order], vals[order], n_out, chunk, window, ut_cap
+        )
+        packed_t = pack_windowed_tiled_flat(
+            cols[order_t], rows[order_t], vals[order_t], n_in, chunk, window, ut_cap
+        )
+    else:
+        packed = pack_windowed_flat(
+            rows[order], cols[order], vals[order], n_out, chunk, window, sort_cols
+        )
+        packed_t = pack_windowed_flat(
+            cols[order_t], rows[order_t], vals[order_t], n_in, chunk, window, sort_cols
+        )
+    return FlatPallasOperator(
+        n_in=int(n_in), n_out=int(n_out), packed=packed, packed_t=packed_t,
+        gather_dtype=gather_dtype,
+    )
 
 
 @dataclasses.dataclass(frozen=True)
 class PallasSpmmOperator:
     """A prepacked SpMM operator: call on (T, N, F) features.
 
-    The name is the JAX package's; here it runs the CUDA K1 (or its plain
-    version for CPU tensors), exact float32 tier.
+    The name is the JAX package's; here it runs the CUDA kernels (or their
+    plain versions for CPU tensors): K1 (float32, or bf16 gathers with
+    ``gather_dtype="bfloat16"``), or K3 for a tiled packing.
     """
 
     T: int
     N: int
-    packed: PackedSpmm
-    packed_t: PackedSpmm
+    packed: PackedSpmm | PackedTiled
+    packed_t: PackedSpmm | PackedTiled
+    fast: bool = False
+    gather_dtype: str | None = None
+
+    def __post_init__(self):
+        _check_fast(self.fast)
+        _gather_dtype(self.gather_dtype)
 
     @property
     def n_slices(self) -> int:
@@ -468,7 +847,12 @@ class PallasSpmmOperator:
     def __call__(self, X: torch.Tensor) -> torch.Tensor:
         if tuple(X.shape[:2]) != (self.T, self.N):
             raise ValueError(f"X must be ({self.T}, {self.N}, F), got {tuple(X.shape)}")
-        return _SpmmPacked.apply(X, self)
+        T, N, F = X.shape
+        flat_op = FlatPallasOperator(
+            n_in=T * N, n_out=T * N, packed=self.packed, packed_t=self.packed_t,
+            gather_dtype=self.gather_dtype,
+        )
+        return flat_op(X.reshape(T * N, F)).reshape(T, N, F)
 
 
 def make_operator(
@@ -483,22 +867,19 @@ def make_operator(
 ) -> PallasSpmmOperator:
     """Prepack forward + transpose packings for A (host-side, numpy).
 
-    Move the operator to the device once with ``.to(device)``.
+    gather_dtype="bfloat16" runs K1's (or K3's) bf16 tier; tile_dedup packs
+    for K3 (PackedTiled, budget ``ut_cap`` distinct tiles per chunk). Move
+    the operator to the device once with ``.to(device)``.
     """
-    if fast or gather_dtype is not None:
-        raise NotImplementedError(
-            "the fast and bf16-gather tiers of K1 are not ported yet (ROADMAP queue 2, K1)"
-        )
+    _check_fast(fast)
     if tile_dedup:
-        raise NotImplementedError(
-            "the tile-dedup kernel K3 is not ported yet (ROADMAP queue 2, K3)"
-        )
-    del ut_cap  # K3's budget; unused until K3 is ported
+        packed = pack_windowed_tiled(A, chunk, window, ut_cap)
+        packed_t = pack_windowed_tiled(A.transpose(), chunk, window, ut_cap)
+    else:
+        packed = pack_windowed(A, chunk, window, sort_cols)
+        packed_t = pack_windowed(A.transpose(), chunk, window, sort_cols)
     return PallasSpmmOperator(
-        T=A.n_slices,
-        N=A.n_nodes,
-        packed=pack_windowed(A, chunk, window, sort_cols),
-        packed_t=pack_windowed(A.transpose(), chunk, window, sort_cols),
+        T=A.n_slices, N=A.n_nodes, packed=packed, packed_t=packed_t, gather_dtype=gather_dtype
     )
 
 

@@ -27,3 +27,14 @@ def randn(
     """
     out = torch.randn(shape, generator=generator, dtype=dtype, device=generator.device)
     return out.to(device) if device is not None else out
+
+
+def nonlinearity(name: str):
+    """The interlayer nonlinearity family of the reference (nonlin2)."""
+    if name == "relu":
+        return torch.relu
+    if name == "leaky":
+        return lambda x: torch.nn.functional.leaky_relu(x, negative_slope=0.01)
+    if name == "selu":
+        return torch.nn.functional.selu
+    raise ValueError(f"unknown nonlinearity: {name!r}")

@@ -9,9 +9,11 @@ optionally followed by the inverse transform M⁻¹ ×₁. All T slices run as
 one batched SpMM and one matmul.
 
 Capability reference (IBM/TM-GCN, TensorGCN-master/
-embedding_help_functions.py): EmbeddingGCN :156-234 (1 layer). The 2-layer
-and regression variants are not ported yet (ROADMAP queue 1, items 5
-and 11).
+embedding_help_functions.py): EmbeddingGCN :156-234 (1 layer),
+EmbeddingGCN2 :236-357 (2 layers, nonlin2/apply_M_twice/
+apply_M_three_times options, float64 interlayer cast :335 and float32 head
+cast :355). The regression variant is not ported yet (ROADMAP queue 1,
+item 11).
 """
 
 from __future__ import annotations
@@ -21,7 +23,7 @@ import dataclasses
 import torch
 
 from tmgcn_torch.core.sparse import TemporalCOO
-from tmgcn_torch.models.common import randn
+from tmgcn_torch.models.common import nonlinearity, randn
 from tmgcn_torch.ops.edge_readout import edge_readout, edge_readout_bilinear
 from tmgcn_torch.ops.mtransform import m_transform, m_transform_inverse
 from tmgcn_torch.ops.spmm import spmm
@@ -105,3 +107,122 @@ class TMGCN:
         if self.readout == "bilinear":
             return edge_readout_bilinear(Y, edges, U)
         return edge_readout(Y, edges, U)
+
+
+@dataclasses.dataclass(frozen=True)
+class TMGCN2:
+    """2-layer TM-GCN with edge-readout head.
+
+    hidden_feat = [F1, F2, C]. The second layer reuses the same Ct; with
+    use_Minv=False the default is a plain propagation of the layer-1
+    output, apply_M_twice re-mixes it through M first, and
+    apply_M_three_times applies M once more after layer 2 (the UCI
+    link-prediction configuration).
+
+    interlayer_dtype mirrors the reference's ``Y = Y.double()`` between
+    layers (float64 for parity runs; None keeps the model dtype).
+    """
+
+    n_slices: int
+    in_feat: int
+    hidden_feat: tuple[int, int, int]
+    condensed_W: bool = True
+    use_Minv: bool = False
+    apply_M_twice: bool = False
+    apply_M_three_times: bool = False
+    nonlin2: str = "relu"
+    dtype: torch.dtype = torch.float32
+    interlayer_dtype: torch.dtype | None = None
+    spmm_impl: str = "jnp"
+
+    def __post_init__(self):
+        if self.apply_M_three_times and not self.apply_M_twice:
+            raise ValueError(
+                "apply_M_three_times requires apply_M_twice (the third "
+                "mixing happens inside the M-twice branch, "
+                "embedding_help_functions.py:342-346)"
+            )
+
+    def init(
+        self, generator: torch.Generator, device: str | torch.device | None = None
+    ) -> dict:
+        """Standard-normal W1, W2 then U, drawn from ``generator``."""
+        f0, (f1, f2, c) = self.in_feat, self.hidden_feat
+        if self.condensed_W:
+            w1_shape, w2_shape = (f0, f1), (f1, f2)
+        else:
+            w1_shape = (self.n_slices, f0, f1)
+            w2_shape = (self.n_slices, f1, f2)
+        return {
+            "params": {
+                "W1": randn(generator, w1_shape, self.dtype, device),
+                "W2": randn(generator, w2_shape, self.dtype, device),
+                "U": randn(generator, (2 * f2, c), self.dtype, device),
+            },
+            "buffers": {},
+        }
+
+    def propagate(self, Ct: TemporalCOO, X: torch.Tensor, M: torch.Tensor) -> torch.Tensor:
+        """First-layer AtXt — parameter-independent, cacheable."""
+        return spmm(Ct, m_transform(M, X), impl=self.spmm_impl)
+
+    def embed(
+        self,
+        variables: dict,
+        Ct: TemporalCOO,
+        X: torch.Tensor,
+        M: torch.Tensor,
+        AtXt: torch.Tensor | None = None,
+    ) -> torch.Tensor:
+        """(T, N, F2) layer-2 embeddings."""
+        p = variables["params"]
+        nonlin = nonlinearity(self.nonlin2)
+
+        if AtXt is None:
+            AtXt = self.propagate(Ct, X, M)
+        AtXt = AtXt.to(self.dtype)  # reference f32 buffer truncation
+        Y = torch.matmul(AtXt, p["W1"].to(AtXt.dtype))
+        if self.use_Minv:
+            Y = m_transform_inverse(M, Y)
+        Y = nonlin(Y)
+        if self.interlayer_dtype is not None:
+            Y = Y.to(self.interlayer_dtype)
+
+        # Second-layer propagations run at Y's precision but land in the
+        # reference's float32 buffers (compute_AX/compute_AtXt use t.zeros,
+        # embedding_help_functions.py:302,309) — hence the dtype casts.
+        W2 = p["W2"].to(self.dtype)
+        if self.use_Minv:
+            AtYt = spmm(Ct, m_transform(M, Y), impl=self.spmm_impl).to(self.dtype)
+            return m_transform_inverse(M, torch.matmul(AtYt, W2))
+        if self.apply_M_twice:
+            AtYt = spmm(Ct, m_transform(M, Y), impl=self.spmm_impl).to(self.dtype)
+            Z = torch.matmul(AtYt, W2)
+            if self.apply_M_three_times:
+                # Reference upcasts to float64 for the final mixing
+                # (embedding_help_functions.py:346).
+                up = self.interlayer_dtype if self.interlayer_dtype is not None else Z.dtype
+                Z = m_transform(M.to(up), Z.to(up))
+            return Z
+        AY = spmm(Ct, Y, impl=self.spmm_impl).to(self.dtype)
+        return torch.matmul(AY, W2)
+
+    def apply(
+        self,
+        variables: dict,
+        Ct: TemporalCOO,
+        X: torch.Tensor,
+        edges: torch.Tensor,
+        M: torch.Tensor,
+        AtXt: torch.Tensor | None = None,
+        readout_op=None,
+    ) -> torch.Tensor:
+        """(E, C) edge logits."""
+        Z = self.embed(variables, Ct, X, M, AtXt)
+        # Reference casts edge embeddings back to float32 at the head
+        # (embedding_help_functions.py:355).
+        Z = Z.to(self.dtype)
+        U = variables["params"]["U"]
+        if readout_op is not None:
+            return readout_op(Z, U)
+        return edge_readout(Z, edges, U)

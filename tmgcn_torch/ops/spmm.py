@@ -12,8 +12,12 @@ one flat gather and one segment sum over the row-sorted entry stream:
 The segment sum is ``torch.segment_reduce`` over the sorted rows, whose
 reduction order is fixed (no atomics, unlike ``index_add_`` on CUDA), and
 its backward is the same reduction over the column-sorted transpose. The
-``"pallas"`` impl runs the hand-written CUDA kernel K1
-(kernels/spmm_cuda.py) instead.
+other impls pack A into an operator first, with the JAX package's
+arguments: ``"pallas"`` / ``"pallas_bf16"`` run the hand-written CUDA
+kernel K1 (float32 / bf16 gathers), ``"pallas_tiled"`` /
+``"pallas_tiled_bf16"`` run K3 (kernels/spmm_cuda.py); ``"rowsplit"`` and
+``"blockdense"`` / ``"blockdense_bf16"`` are the operators of
+ops/spmm_rowsplit.py and ops/spmm_blockdense.py.
 """
 
 from __future__ import annotations
@@ -21,16 +25,6 @@ from __future__ import annotations
 import torch
 
 from tmgcn_torch.core.sparse import TemporalCOO
-
-# Impls of tmgcn_tpu.ops.spmm not ported yet, and where ROADMAP.md tracks them.
-_NOT_PORTED = {
-    "pallas_bf16": "queue 2, K1 bf16-gather tier",
-    "pallas_tiled": "queue 2, K3",
-    "pallas_tiled_bf16": "queue 2, K3",
-    "rowsplit": "queue 1, item 3",
-    "blockdense": "queue 1, item 5",
-    "blockdense_bf16": "queue 1, item 5",
-}
 
 
 def _segment_sum(
@@ -63,6 +57,33 @@ class _SegmentSpmm(torch.autograd.Function):
         return dX, None, None, None, None
 
 
+def pack_operator(A: TemporalCOO, impl: str):
+    """The host-packed operator of one of spmm's packing impls, with the
+    JAX package's arguments; move it to the device with ``.to``."""
+    bf16 = impl.endswith("_bf16")
+    if impl in ("pallas", "pallas_bf16"):
+        from tmgcn_torch.kernels.spmm_cuda import make_operator
+
+        if impl == "pallas":
+            return make_operator(A)
+        return make_operator(A, chunk=512, window=256, gather_dtype="bfloat16", sort_cols=True)
+    if impl in ("pallas_tiled", "pallas_tiled_bf16"):
+        from tmgcn_torch.kernels.spmm_cuda import make_operator
+
+        return make_operator(
+            A, chunk=512, window=256, tile_dedup=True, gather_dtype="bfloat16" if bf16 else None
+        )
+    if impl == "rowsplit":
+        from tmgcn_torch.ops.spmm_rowsplit import make_operator
+
+        return make_operator(A)
+    if impl in ("blockdense", "blockdense_bf16"):
+        from tmgcn_torch.ops.spmm_blockdense import make_operator
+
+        return make_operator(A, mode="bf16" if bf16 else "exact")
+    raise ValueError(f"unknown spmm impl: {impl!r}")
+
+
 def spmm(A, X: torch.Tensor, impl: str = "jnp") -> torch.Tensor:
     """Batched per-slice SpMM: Y[k] = A[k] @ X[k].
 
@@ -72,7 +93,10 @@ def spmm(A, X: torch.Tensor, impl: str = "jnp") -> torch.Tensor:
             ``kernels.spmm_cuda.PallasSpmmOperator``.
         X: dense (T, N, F) features.
         impl: "jnp" (gather + sorted segment sum, the name kept from the
-            JAX package) or "pallas" (the CUDA kernel K1).
+            JAX package), or an impl that packs A first (one-shot: the
+            packing is not kept): "pallas", "pallas_bf16", "pallas_tiled",
+            "pallas_tiled_bf16", "rowsplit", "blockdense",
+            "blockdense_bf16".
 
     Returns:
         (T, N, F) dense result, dtype of X.
@@ -80,16 +104,8 @@ def spmm(A, X: torch.Tensor, impl: str = "jnp") -> torch.Tensor:
     if not isinstance(A, TemporalCOO):
         # A prepacked operator: the adapters decide at build time.
         return A(X)
-    if impl == "pallas":
-        from tmgcn_torch.kernels.spmm_cuda import spmm_pallas
-
-        return spmm_pallas(A, X)
-    if impl in _NOT_PORTED:
-        raise NotImplementedError(
-            f"spmm impl {impl!r} is not ported yet (ROADMAP {_NOT_PORTED[impl]})"
-        )
     if impl != "jnp":
-        raise ValueError(f"unknown spmm impl: {impl!r}")
+        return pack_operator(A, impl).to(X.device)(X)
     T, P = A.rows.shape
     N = A.n_nodes
     F = X.shape[-1]

@@ -1,9 +1,10 @@
 """Where the time of a warm chess epoch goes, on the card.
 
-    python -m tmgcn_torch.utils.profile_slice [PRESET]
+    python -m tmgcn_torch.utils.profile_slice [PRESET [SPMM_IMPL]]
 
-PRESET is chess_tmgcn_cls (the default; run with spmm_impl="pallas") or
-chess_wdgcn_cls (the preset's own spmm_impl). Builds the slice's adapter
+PRESET is chess_tmgcn_cls (the default) or chess_tmgcn2_cls, each run with
+spmm_impl="pallas" unless SPMM_IMPL names another, or chess_wdgcn_cls (the
+preset's own spmm_impl). Builds the slice's adapter
 once (device cuda, data in data/chess), warms the loop up with one run,
 then:
 
@@ -38,7 +39,11 @@ DATA_DIR = "data/chess"
 EPOCHS = 200
 REPEATS = 11
 TRACED_EPOCHS = 21
-PRESETS = {"chess_tmgcn_cls": {"spmm_impl": "pallas"}, "chess_wdgcn_cls": {}}
+PRESETS = {
+    "chess_tmgcn_cls": {"spmm_impl": "pallas"},
+    "chess_tmgcn2_cls": {"spmm_impl": "pallas"},
+    "chess_wdgcn_cls": {},
+}
 
 
 def main(argv=None) -> int:
@@ -50,7 +55,8 @@ def main(argv=None) -> int:
         raise SystemExit("profile_slice needs an NVIDIA card")
     dev = torch.device("cuda")
 
-    cfg = dataclasses.replace(get_preset(preset), **PRESETS[preset])
+    overrides = dict(PRESETS[preset], **({"spmm_impl": argv[1]} if len(argv) > 1 else {}))
+    cfg = dataclasses.replace(get_preset(preset), **overrides)
     data = build_data(cfg, data_dir=DATA_DIR)
     splits = split_edges_classification(
         data.edge_index, data.edge_values, data.spec, n_classes=cfg.n_classes

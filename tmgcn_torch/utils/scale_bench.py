@@ -40,7 +40,7 @@ from tmgcn_torch.ops.degree import degree_features_np
 
 # Families of tools/bench_scale.py not ported yet, and their ROADMAP items.
 _NOT_PORTED = {
-    "tmgcn2": "queue 1, item 5",
+    "tmgcn2": "queue 1, item 12: the family's 1M-node size runs the streamed layer 2",
     "evolvegcn": "queue 1, item 9",
 }
 _NAMES = {"tmgcn1": "one_layer", "tmgcn2": "two_layer", "evolvegcn": "evolvegcn",
