@@ -58,6 +58,10 @@ non-zero, and nothing falls back to the CPU:
                   restricted layer 2 forward and backward per step, val and
                   test forwards at 2 evaluation epochs); a warm rerun with
                   the same rows; 5 epochs against the CPU's plain path;
+                  then, outside the counts, a traced warm run of 21 epochs
+                  with "pallas" and with the preset's "jnp" (restricted
+                  layer 2 as K1 and as block-dense): device ms per epoch
+                  and busy share, as profile_slice measures them;
                f. the same with "pallas_bf16": 407 bf16 K1 launches;
                g. "pallas_tiled" and "pallas_tiled_bf16", 5 epochs each: 3
                   K3 launches of the tier (the cached propagations; layer 2
@@ -946,6 +950,9 @@ def phase_tmgcn2(torch, np, tk) -> dict[str, tuple]:
     cfg = dataclasses.replace(base, spmm_impl="pallas")
     counts["chess_tmgcn2_cls pallas"] = _run_slice(
         torch, np, tk, cfg, e_train, (k1_launches, 0, 0, 0, 0))
+    # Device time per epoch of the restricted operator as K1 and as
+    # block-dense (the preset's auto), traced as profile_slice traces it.
+    profiles = {impl: _device_profile(impl) for impl in ("pallas", "jnp")}
     cfg = dataclasses.replace(base, spmm_impl="pallas_bf16")
     counts["chess_tmgcn2_cls pallas_bf16"] = _run_slice(
         torch, np, tk, cfg, e_train, (0, k1_launches, 0, 0, 0), warm=False, rtol=BF16_RTOL)
@@ -956,7 +963,25 @@ def phase_tmgcn2(torch, np, tk) -> dict[str, tuple]:
             torch, np, tk, cfg, e_train, expected, epochs=REF_EPOCHS, warm=False, rtol=rtol)
     counts["chess_tmgcn2_cls preset (jnp: blockdense)"] = _run_slice(
         torch, np, tk, base, e_train, (0, 0, 0, 0, 0))
-    return counts
+    return counts, profiles
+
+
+def _device_profile(impl: str) -> dict:
+    """chess_tmgcn2_cls with one spmm_impl: a warm-up run, then a traced
+    run of profile_slice's 21 epochs; device ms per epoch and busy share."""
+    from tmgcn_torch.utils import profile_slice
+
+    _, run = profile_slice.build_runner("chess_tmgcn2_cls", impl)
+    run(profile_slice.TRACED_EPOCHS)  # this adapter's first launches
+    traced, _ = profile_slice.trace(run)
+    check(traced["device_ms_per_profiled_epoch"] > 0,
+          f"chess_tmgcn2_cls ({impl}): the trace shows no device time")
+    print(f"chess_tmgcn2_cls ({impl}) traced warm, {traced['profiled_epochs']} epochs: "
+          f"device {traced['device_ms_per_profiled_epoch']:.6f} ms per epoch, busy share "
+          f"{traced['device_busy_share']:.4f}, wall {traced['profiled_wall_ms'] / traced['profiled_epochs']:.6f} "
+          f"ms per epoch, {traced['launch_calls_per_profiled_epoch']:.1f} launch calls per epoch; "
+          f"device ms by kernel {json.dumps(traced['device_ms_by_kernel'])}")
+    return traced
 
 
 def main() -> int:
@@ -988,7 +1013,8 @@ def main() -> int:
     by_path = {"chess_tmgcn_cls pallas": phase_tmgcn(torch, np, tk, e_train)}
     by_path.update(phase_wdgcn_chess(torch, np, tk, e_train))
     by_path["wdgcn scale 500k x 64"] = phase_wdgcn_scale(torch, np, tk, inputs, t_scale_build)
-    by_path.update(phase_tmgcn2(torch, np, tk))
+    tmgcn2_counts, profiles = phase_tmgcn2(torch, np, tk)
+    by_path.update(tmgcn2_counts)
     check("jax" not in sys.modules and "tmgcn_tpu" not in sys.modules,
           "the JAX package was imported")
     kernels = (k1, k1_bf16, k2, k3, k3_bf16)
@@ -998,6 +1024,8 @@ def main() -> int:
         check(k["launches"] > 0, f"{k['name']} was launched no time on the main paths")
     print(f"restricted operator times (chess_tmgcn2_cls train window): "
           f"{json.dumps(restricted['operators'])}")
+    print("restricted operator device ms per epoch (traced chess_tmgcn2_cls): " + json.dumps(
+        {impl: p["device_ms_per_profiled_epoch"] for impl, p in profiles.items()}))
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
     extra = ("shape", "launches_by_path", "train_window", "restricted_forward",

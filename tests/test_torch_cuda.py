@@ -193,6 +193,77 @@ def test_k3_matches_plain_and_repeats_bitwise(cuda_device, F, ut_cap, dtype):
     assert torch.equal(out, again)
 
 
+# Regimes of K1's and K3's row walk, at F = 6 (three threads a row).
+REGIMES = ("few_windows_many_chunks", "long_row", "padding_window")
+
+
+def _regime_stream(regime):
+    """Row-sorted entries over 2,048 rows (windows of 256) and 3,000 columns.
+
+    few_windows_many_chunks: 8 windows of ~40 chunks of 64 each (the
+    restricted layer-2 forward's regime); long_row: row 517 has 400 entries
+    among short rows; padding_window: windows 2-5 have no entry, so an
+    all-windows packing gives each of them one chunk of pure padding.
+    """
+    rng = np.random.default_rng(REGIMES.index(regime))
+    if regime == "few_windows_many_chunks":
+        rows = rng.integers(0, 2048, 20_000)
+    elif regime == "long_row":
+        rows = np.r_[rng.integers(0, 2048, 3000), np.full(400, 517)]
+    else:
+        rows = np.r_[rng.integers(0, 512, 2000), rng.integers(1536, 2048, 1000)]
+    rows = np.sort(rows)
+    cols = rng.integers(0, 3000, rows.size)
+    vals = rng.standard_normal(rows.size).astype(np.float32)
+    return rows, cols, vals
+
+
+@pytest.mark.parametrize("regime", REGIMES)
+@pytest.mark.parametrize("use_init", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k1_row_walk_regimes(cuda_device, regime, use_init, dtype):
+    """K1 at F = 6 against its plain version, one launch a call, bitwise
+    repeat; with an init (7s, so the write rule shows) windows without a
+    chunk keep it, and a window whose only chunk is padding is written 0."""
+    rows, cols, vals = _regime_stream(regime)
+    all_windows = regime == "padding_window" or not use_init
+    p = tk.pack_windowed_flat(rows, cols, vals, 2048, 64, 256, True, all_windows).to(cuda_device)
+    g = torch.randn(p.n_chunks, p.chunk, 6, device=cuda_device).to(dtype)
+
+    def init():
+        return torch.full((p.n_rows_out, 6), 7.0, device=cuda_device) if use_init else None
+
+    counter = "launches" if dtype == torch.float32 else "launches_bf16"
+    before = getattr(tk.windowed_segment_matmul, counter)
+    out = tk.windowed_segment_matmul(p, g, out_dtype=torch.float32, init=init())
+    again = tk.windowed_segment_matmul(p, g, out_dtype=torch.float32, init=init())
+    torch.cuda.synchronize()
+    assert getattr(tk.windowed_segment_matmul, counter) == before + 2
+    ref = tk.windowed_segment_matmul_reference(p, g, out_dtype=torch.float32, init=init())
+    torch.testing.assert_close(out, ref, rtol=0, atol=ATOL * max(1.0, ref.abs().max().item()))
+    assert torch.equal(out, again)
+    if regime == "padding_window":
+        assert torch.all(out[512:1536] == 0)
+
+
+@pytest.mark.parametrize("regime", REGIMES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k3_row_walk_regimes(cuda_device, regime, dtype):
+    """K3 at F = 6 against its plain version, one launch a call, bitwise repeat."""
+    rows, cols, vals = _regime_stream(regime)
+    p = tk.pack_windowed_tiled_flat(rows, cols, vals, 2048, 64, 256, 8).to(cuda_device)
+    g = torch.randn(p.n_chunks, 8 * p.ut_cap, 6, device=cuda_device).to(dtype)
+    counter = "launches" if dtype == torch.float32 else "launches_bf16"
+    before = getattr(tk.windowed_tiled_segment_matmul, counter)
+    out = tk.windowed_tiled_segment_matmul(p, g, out_dtype=torch.float32)
+    again = tk.windowed_tiled_segment_matmul(p, g, out_dtype=torch.float32)
+    torch.cuda.synchronize()
+    assert getattr(tk.windowed_tiled_segment_matmul, counter) == before + 2
+    ref = tk.windowed_tiled_segment_matmul_reference(p, g, out_dtype=torch.float32)
+    torch.testing.assert_close(out, ref, rtol=0, atol=ATOL * max(1.0, ref.abs().max().item()))
+    assert torch.equal(out, again)
+
+
 @pytest.mark.parametrize("kwargs", [
     {"gather_dtype": "bfloat16", "sort_cols": True, "chunk": 512},
     {"tile_dedup": True, "chunk": 512},

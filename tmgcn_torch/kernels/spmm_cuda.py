@@ -11,10 +11,13 @@ tmgcn_tpu/kernels/spmm_pallas.py:608-721) and takes the same host packing:
     output rows all fall in one ``window``-row output window
     (``pack_windowed``); chunks are sorted by window, so ``window_ptr``
     gives each window's chunk range.
-  * Per window, K1 sums ``vals * gathered`` into the (window, F) output
-    rows, each output element by one thread in entry order — bitwise
-    deterministic, no float atomics. What bounds it, and what its design
-    does about that, is noted at the top of the CUDA source.
+  * At pack time the real entries are also indexed by global output row
+    (``entry_order``, ``row_ptr``: a CSR view of the chunk slots, in chunk
+    then entry order within each row). K1 walks that index: each output
+    element is summed by one thread over its row's entries, in that order —
+    bitwise deterministic, no float atomics, no scan of a chunk's slots.
+    What bounds it, and what its design does about that, is noted at the
+    top of ``csrc/row_segment_matmul.cuh``.
 
 K1 has the JAX package's exact float32 tier and its bf16-gather tier
 (``gather_dtype="bfloat16"``: X is cast to bf16 before the gather, each
@@ -35,8 +38,9 @@ K3, ``windowed_tiled_segment_matmul`` (``csrc/windowed_tiled_segment_matmul.cu``
 replaces the Pallas kernel of the same name (body ``_tiled_scatter_kernel``,
 tmgcn_tpu/kernels/spmm_pallas.py:510-605) over the tile-dedup packing
 ``PackedTiled``: each chunk's distinct 8-row tiles of X are gathered once,
-and the kernel reads each entry's row from that block by ``uidx``. Float32
-and bf16 tiers, launch counts ``.launches`` and ``.launches_bf16``.
+and the kernel reads each entry's row from that block by ``uidx``, walking
+the same row index as K1. Float32 and bf16 tiers, launch counts
+``.launches`` and ``.launches_bf16``.
 
 Every kernel wrapper launches its kernel for a CUDA tensor and raises where
 it cannot; it takes its plain PyTorch version (``*_reference``) only for a
@@ -59,14 +63,35 @@ from tmgcn_torch.ops.spmm_rowsplit import flatten_stream
 
 DEFAULT_CHUNK = 256
 DEFAULT_WINDOW = 256
-MAX_WINDOW = 1024  # one thread per output row of a window
-MAX_SMEM = 227 * 1024  # shared memory one block may use on the H100
+MAX_WINDOW = 1024  # K2: one thread per output row of a window
 GATHER_DTYPES = {None: None, "bfloat16": torch.bfloat16}
 
 
 def _window_ptr(wid: np.ndarray, n_windows: int) -> np.ndarray:
     """Chunk offsets of each window in a window-sorted chunk stream."""
     return np.searchsorted(wid, np.arange(n_windows + 1), side="left").astype(np.int32)
+
+
+def _row_index(
+    rows: np.ndarray, vals: np.ndarray, wid: np.ndarray, window: int, n_rows_out: int
+) -> tuple[np.ndarray, np.ndarray]:
+    """(entry_order, row_ptr): the real slots of a packing grouped by output row.
+
+    entry_order lists the flat slot ids j*C + c of the real entries (val
+    != 0; a padding slot adds 0 to no sum), stably sorted by global output
+    row wid[j]*W + rows[j, c]: within a row, chunk order then entry order,
+    the order in which the TPU kernel sums them. Row r's entries are
+    entry_order[row_ptr[r]:row_ptr[r + 1]].
+    """
+    J, C = rows.shape
+    if J * C >= 2**31:
+        raise ValueError(f"{J} x {C} slots do not fit int32 slot ids")
+    slots = np.flatnonzero(np.asarray(vals).reshape(-1) != 0)
+    g_row = wid.astype(np.int64)[slots // C] * window + rows.reshape(-1)[slots]
+    entry_order = slots[np.argsort(g_row, kind="stable")].astype(np.int32)
+    row_ptr = np.zeros(n_rows_out + 1, np.int32)
+    np.cumsum(np.bincount(g_row, minlength=n_rows_out), out=row_ptr[1:])
+    return entry_order, row_ptr
 
 
 @dataclasses.dataclass(frozen=True)
@@ -81,6 +106,10 @@ class PackedSpmm:
     is_first: (J,) int32 — 1 iff the chunk is the first of its window.
     window_ptr: (n_windows + 1,) int32 — chunks of window w are
         [window_ptr[w], window_ptr[w + 1]); derived from window_id.
+    entry_order: (nnz,) int32 — flat slot ids j*C + c of the real entries,
+        grouped by global output row (``_row_index``); K1's work list.
+    row_ptr: (n_rows_out + 1,) int32 — row r's entries are
+        entry_order[row_ptr[r]:row_ptr[r + 1]].
     n_rows_out: padded output rows (a multiple of window).
 
     The arrays are numpy on the host, or torch tensors after ``to``.
@@ -92,6 +121,8 @@ class PackedSpmm:
     window_id: np.ndarray | torch.Tensor
     is_first: np.ndarray | torch.Tensor
     window_ptr: np.ndarray | torch.Tensor
+    entry_order: np.ndarray | torch.Tensor
+    row_ptr: np.ndarray | torch.Tensor
     n_rows_out: int
     chunk: int
     window: int
@@ -114,6 +145,8 @@ class PackedSpmm:
             window_id=to_device(self.window_id, device),
             is_first=to_device(self.is_first, device),
             window_ptr=to_device(self.window_ptr, device),
+            entry_order=to_device(self.entry_order, device),
+            row_ptr=to_device(self.row_ptr, device),
         )
 
 
@@ -211,6 +244,7 @@ def pack_windowed_flat(
     wid_out = chunk_wid[order].astype(np.int32)
     first_out = np.r_[True, wid_out[1:] != wid_out[:-1]].astype(np.int32)[:J]
 
+    entry_order, row_ptr = _row_index(rows_out, vals_out, wid_out, window, n_rows_out)
     return PackedSpmm(
         rows=rows_out,
         cols=cols_out,
@@ -218,6 +252,8 @@ def pack_windowed_flat(
         window_id=wid_out,
         is_first=first_out,
         window_ptr=_window_ptr(wid_out, n_windows),
+        entry_order=entry_order,
+        row_ptr=row_ptr,
         n_rows_out=int(n_rows_out),
         chunk=chunk,
         window=window,
@@ -236,9 +272,10 @@ class PackedTiled:
         tile_position * 8 + (col % 8); 0 on padding (val 0).
     tiles: (J, ut_cap) int32 — distinct global tile ids (col // 8) of the
         chunk, padded with 0 (padded tiles are never referenced by uidx).
-    vals / window_id / is_first / window_ptr / n_rows_out / chunk /
-        window: as PackedSpmm. ut_cap: the per-chunk distinct-tile budget;
-        a chunk is cut early where one more entry would exceed it.
+    vals / window_id / is_first / window_ptr / entry_order / row_ptr /
+        n_rows_out / chunk / window: as PackedSpmm. ut_cap: the per-chunk
+        distinct-tile budget; a chunk is cut early where one more entry
+        would exceed it.
 
     The arrays are numpy on the host, or torch tensors after ``to``.
     """
@@ -250,6 +287,8 @@ class PackedTiled:
     window_id: np.ndarray | torch.Tensor
     is_first: np.ndarray | torch.Tensor
     window_ptr: np.ndarray | torch.Tensor
+    entry_order: np.ndarray | torch.Tensor
+    row_ptr: np.ndarray | torch.Tensor
     n_rows_out: int
     chunk: int
     window: int
@@ -274,6 +313,8 @@ class PackedTiled:
             window_id=to_device(self.window_id, device),
             is_first=to_device(self.is_first, device),
             window_ptr=to_device(self.window_ptr, device),
+            entry_order=to_device(self.entry_order, device),
+            row_ptr=to_device(self.row_ptr, device),
         )
 
 
@@ -360,6 +401,7 @@ def pack_windowed_tiled_flat(
     wid_out = chunk_wid[order].astype(np.int32)
     first_out = np.r_[True, wid_out[1:] != wid_out[:-1]].astype(np.int32)[:J]
 
+    entry_order, row_ptr = _row_index(rows_out, vals_out, wid_out, window, n_rows_out)
     return PackedTiled(
         rows=rows_out,
         uidx=uidx_out,
@@ -368,6 +410,8 @@ def pack_windowed_tiled_flat(
         window_id=wid_out,
         is_first=first_out,
         window_ptr=_window_ptr(wid_out, n_windows),
+        entry_order=entry_order,
+        row_ptr=row_ptr,
         n_rows_out=int(n_rows_out),
         chunk=chunk,
         window=window,
@@ -491,9 +535,6 @@ def _output(
     packed, out_shape: tuple[int, int], init: torch.Tensor | None, device: torch.device
 ) -> torch.Tensor:
     """Check the window layout; the caller's init, or a new float32 output."""
-    if packed.window > MAX_WINDOW:
-        raise ValueError(f"window {packed.window} > {MAX_WINDOW}")
-    _check_cuda("packed.rows", packed.rows, torch.int32, device)
     _check_cuda("packed.vals", packed.vals, torch.float32, device)
     _check_cuda("packed.window_ptr", packed.window_ptr, torch.int32, device)
     if packed.window_ptr.shape != (packed.n_windows + 1,):
@@ -506,33 +547,35 @@ def _output(
     return init
 
 
-def _launch(
-    symbol: str,
-    packed: PackedSpmm,
-    gathered: torch.Tensor,
-    F: int,
-    out_shape: tuple[int, int],
+def _launch_rows(
+    symbol: str, packed: PackedSpmm | PackedTiled, gathered: torch.Tensor,
     init: torch.Tensor | None,
 ) -> torch.Tensor:
-    """Check the arguments of K1 or K2 and launch it on the current stream."""
+    """Check the arguments of K1 or K3 (by the packing's type) and launch it
+    on the current stream: one launch over the packing's row index."""
     device = gathered.device
+    F = gathered.shape[-1]
     _check_cuda("gathered", gathered, gathered.dtype, device)
-    out = _output(packed, out_shape, init, device)
-    if packed.n_windows == 0:
+    _check_cuda("packed.entry_order", packed.entry_order, torch.int32, device)
+    _check_cuda("packed.row_ptr", packed.row_ptr, torch.int32, device)
+    if packed.row_ptr.shape != (packed.n_rows_out + 1,):
+        raise ValueError("packed.row_ptr must have n_rows_out + 1 entries")
+    out = _output(packed, (packed.n_rows_out, F), init, device)
+    if isinstance(packed, PackedTiled):
+        _check_cuda("packed.uidx", packed.uidx, torch.int32, device)
+        source = "windowed_tiled_segment_matmul.cu"
+        tile_ptrs, tile_ints = [packed.uidx.data_ptr()], [packed.chunk, gathered.shape[1]]
+    else:
+        source, tile_ptrs, tile_ints = "windowed_segment_matmul.cu", [], []
+    if packed.n_rows_out == 0:
         return out
+    ptrs = [packed.entry_order.data_ptr(), packed.row_ptr.data_ptr(), *tile_ptrs,
+            packed.vals.data_ptr(), gathered.data_ptr(), packed.window_ptr.data_ptr(),
+            out.data_ptr()]
+    ints = [packed.n_rows_out, *tile_ints, F, packed.window, 0 if init is not None else 1]
     with torch.cuda.device(device):
-        err = _kernel("windowed_segment_matmul.cu", symbol, 5, 5)(
-            packed.rows.data_ptr(),
-            packed.vals.data_ptr(),
-            gathered.data_ptr(),
-            packed.window_ptr.data_ptr(),
-            out.data_ptr(),
-            packed.n_windows,
-            packed.chunk,
-            F,
-            packed.window,
-            0 if init is not None else 1,
-            torch.cuda.current_stream(device).cuda_stream,
+        err = _kernel(source, symbol, len(ptrs), len(ints))(
+            *ptrs, *ints, torch.cuda.current_stream(device).cuda_stream
         )
     if err != 0:
         raise RuntimeError(f"{symbol} launch failed: CUDA error {err}")
@@ -565,7 +608,7 @@ def windowed_segment_matmul(
         raise ValueError(f"gathered must be ({J}, {C}, F>=1), got {tuple(gathered.shape)}")
     bf16 = gathered.dtype == torch.bfloat16
     symbol = "tmgcn_windowed_segment_matmul_" + ("bf16" if bf16 else "f32")
-    out = _launch(symbol, packed, gathered, F, (packed.n_rows_out, F), init)
+    out = _launch_rows(symbol, packed, gathered, init)
     if bf16:
         windowed_segment_matmul.launches_bf16 += 1
     else:
@@ -590,7 +633,9 @@ def windowed_segment_matmul_t(
     same ``init`` semantics (an (F, n_rows_out) zero tensor used as the
     output itself; windows without a chunk are not written), the same
     device policy (the kernel on a CUDA tensor, the plain version on a CPU
-    tensor, an error otherwise). Float32 only.
+    tensor, an error otherwise). Float32 only. Its kernel still scans each
+    window's chunk slots (one block per window, thread r owning row r), so
+    the window is at most MAX_WINDOW rows.
     """
     if gathered_t.device.type == "cpu":
         return windowed_segment_matmul_t_reference(packed, gathered_t, out_dtype, init)
@@ -601,9 +646,30 @@ def windowed_segment_matmul_t(
     F = gathered_t.shape[1] if gathered_t.dim() == 3 else 0
     if gathered_t.shape != (J, F, C) or F < 1:
         raise ValueError(f"gathered_t must be ({J}, F>=1, {C}), got {tuple(gathered_t.shape)}")
-    out = _launch(
-        "tmgcn_windowed_segment_matmul_t_f32", packed, gathered_t, F, (F, packed.n_rows_out), init
-    )
+    if packed.window > MAX_WINDOW:
+        raise ValueError(f"window {packed.window} > {MAX_WINDOW}")
+    device = gathered_t.device
+    _check_cuda("gathered_t", gathered_t, torch.float32, device)
+    _check_cuda("packed.rows", packed.rows, torch.int32, device)
+    out = _output(packed, (F, packed.n_rows_out), init, device)
+    symbol = "tmgcn_windowed_segment_matmul_t_f32"
+    if packed.n_windows:
+        with torch.cuda.device(device):
+            err = _kernel("windowed_segment_matmul.cu", symbol, 5, 5)(
+                packed.rows.data_ptr(),
+                packed.vals.data_ptr(),
+                gathered_t.data_ptr(),
+                packed.window_ptr.data_ptr(),
+                out.data_ptr(),
+                packed.n_windows,
+                packed.chunk,
+                F,
+                packed.window,
+                0 if init is not None else 1,
+                torch.cuda.current_stream(device).cuda_stream,
+            )
+        if err != 0:
+            raise RuntimeError(f"{symbol} launch failed: CUDA error {err}")
     windowed_segment_matmul_t.launches += 1
     return out
 
@@ -628,38 +694,14 @@ def windowed_tiled_segment_matmul(
     if gathered.device.type != "cuda":
         raise ValueError(f"no kernel for device {gathered.device}")
     _check_tier(gathered, out_dtype, (torch.float32, torch.bfloat16))
-    J, C = packed.rows.shape
+    J = packed.n_chunks
     U8 = 8 * packed.ut_cap
     F = gathered.shape[-1] if gathered.dim() == 3 else 0
     if gathered.shape != (J, U8, F) or F < 1:
         raise ValueError(f"gathered must be ({J}, {U8}, F>=1), got {tuple(gathered.shape)}")
-    ft = min(8, 1 << (F - 1).bit_length())  # the kernel's feature tile: 1, 2, 4 or 8
-    if C * 12 + U8 * ft * 4 > MAX_SMEM:
-        raise ValueError(f"chunk {C} with ut_cap {packed.ut_cap} does not fit in shared memory")
-    device = gathered.device
-    _check_cuda("gathered", gathered, gathered.dtype, device)
-    _check_cuda("packed.uidx", packed.uidx, torch.int32, device)
-    out = _output(packed, (packed.n_rows_out, F), None, device)
     bf16 = gathered.dtype == torch.bfloat16
     symbol = "tmgcn_windowed_tiled_segment_matmul_" + ("bf16" if bf16 else "f32")
-    if packed.n_windows:
-        with torch.cuda.device(device):
-            err = _kernel("windowed_tiled_segment_matmul.cu", symbol, 6, 5)(
-                packed.rows.data_ptr(),
-                packed.uidx.data_ptr(),
-                packed.vals.data_ptr(),
-                gathered.data_ptr(),
-                packed.window_ptr.data_ptr(),
-                out.data_ptr(),
-                packed.n_windows,
-                C,
-                U8,
-                F,
-                packed.window,
-                torch.cuda.current_stream(device).cuda_stream,
-            )
-        if err != 0:
-            raise RuntimeError(f"{symbol} launch failed: CUDA error {err}")
+    out = _launch_rows(symbol, packed, gathered, None)
     if bf16:
         windowed_tiled_segment_matmul.launches_bf16 += 1
     else:

@@ -46,16 +46,15 @@ PRESETS = {
 }
 
 
-def main(argv=None) -> int:
-    argv = sys.argv[1:] if argv is None else argv
-    preset = argv[0] if argv else "chess_tmgcn_cls"
+def build_runner(preset: str, spmm_impl: str | None = None):
+    """(cfg, run) for one preset on the card: the adapter is built once;
+    ``run(n_epochs, eval_every=cfg.eval_every)`` trains from the same
+    initial parameters each time."""
     if preset not in PRESETS:
         raise SystemExit(f"profile_slice profiles one of {sorted(PRESETS)}, not {preset!r}")
     if not torch.cuda.is_available():
         raise SystemExit("profile_slice needs an NVIDIA card")
-    dev = torch.device("cuda")
-
-    overrides = dict(PRESETS[preset], **({"spmm_impl": argv[1]} if len(argv) > 1 else {}))
+    overrides = dict(PRESETS[preset], **({"spmm_impl": spmm_impl} if spmm_impl else {}))
     cfg = dataclasses.replace(get_preset(preset), **overrides)
     data = build_data(cfg, data_dir=DATA_DIR)
     splits = split_edges_classification(
@@ -64,7 +63,7 @@ def main(argv=None) -> int:
     model = build_model(cfg, data.spec.s_train, data.feats["train"].shape[-1])
     adapter = make_edge_adapter(
         model, data.adj, data.feats, {w: splits[w].edges for w in WINDOWS},
-        M=data.M if cfg.method == "tmgcn" else None, device=dev,
+        M=data.M if cfg.method == "tmgcn" else None, device=torch.device("cuda"),
     )
     cw = np.array([1 / 3, 1 / 3, 1 / 3])
     gen = torch.Generator().manual_seed(cfg.seed)
@@ -74,24 +73,20 @@ def main(argv=None) -> int:
                            eval_every=eval_every)
         return run_edge_classification(adapter, splits, cw, tcfg, generator=gen)
 
-    run(EPOCHS)  # the process's first launches of every kernel
-    warm_ms = []
-    for _ in range(REPEATS):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        run(EPOCHS)
-        torch.cuda.synchronize()
-        warm_ms.append(1e3 * (time.perf_counter() - t0) / EPOCHS)
+    return cfg, run
 
+
+def trace(run, n_epochs: int = TRACED_EPOCHS) -> tuple[dict, object]:
+    """A traced warm run of n_epochs (one evaluation epoch): device ms per
+    epoch, the device's busy share of the wall time, host launch calls per
+    epoch and the top kernels' device ms; and the profiler's averages."""
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
-        run(TRACED_EPOCHS, eval_every=TRACED_EPOCHS)
+        run(n_epochs, eval_every=n_epochs)
         torch.cuda.synchronize()
         wall_us = 1e6 * (time.perf_counter() - t0)
     avg = prof.key_averages()
-    print(avg.table(sort_by="self_device_time_total", row_limit=12))
-    print(avg.table(sort_by="self_cpu_time_total", row_limit=12))
     # Kernels (and copies) are the events on the device itself; operator
     # rows also carry their kernels' time, and annotation spans (the
     # optimizer's step) cover kernels already counted, so only kernels are
@@ -102,6 +97,36 @@ def main(argv=None) -> int:
     ]
     device_us = sum(e.self_device_time_total for e in on_device)
     top = sorted(on_device, key=lambda e: -e.self_device_time_total)[:8]
+    return {
+        "profiled_epochs": n_epochs,
+        "profiled_wall_ms": wall_us / 1e3,
+        "device_ms_per_profiled_epoch": device_us / 1e3 / n_epochs,
+        "device_busy_share": device_us / wall_us,
+        # Host-side kernel launches (every kernel, library or ours).
+        "launch_calls_per_profiled_epoch": sum(
+            e.count for e in avg if e.key in ("cudaLaunchKernel", "cuLaunchKernel", "cuLaunchKernelEx")
+        ) / n_epochs,
+        "device_ms_by_kernel": {e.key[:80]: e.self_device_time_total / 1e3 for e in top},
+    }, avg
+
+
+def main(argv=None) -> int:
+    argv = sys.argv[1:] if argv is None else argv
+    preset = argv[0] if argv else "chess_tmgcn_cls"
+    cfg, run = build_runner(preset, argv[1] if len(argv) > 1 else None)
+
+    run(EPOCHS)  # the process's first launches of every kernel
+    warm_ms = []
+    for _ in range(REPEATS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run(EPOCHS)
+        torch.cuda.synchronize()
+        warm_ms.append(1e3 * (time.perf_counter() - t0) / EPOCHS)
+
+    traced, avg = trace(run)
+    print(avg.table(sort_by="self_device_time_total", row_limit=12))
+    print(avg.table(sort_by="self_cpu_time_total", row_limit=12))
     result = {
         "preset": preset,
         "spmm_impl": cfg.spmm_impl,
@@ -118,15 +143,7 @@ def main(argv=None) -> int:
             "runs": REPEATS,
             "epochs_per_run": EPOCHS,
         },
-        "profiled_epochs": TRACED_EPOCHS,
-        "profiled_wall_ms": wall_us / 1e3,
-        "device_ms_per_profiled_epoch": device_us / 1e3 / TRACED_EPOCHS,
-        "device_busy_share": device_us / wall_us,
-        # Host-side kernel launches (every kernel, library or ours).
-        "launch_calls_per_profiled_epoch": sum(
-            e.count for e in avg if e.key in ("cudaLaunchKernel", "cuLaunchKernel", "cuLaunchKernelEx")
-        ) / TRACED_EPOCHS,
-        "device_ms_by_kernel": {e.key[:80]: e.self_device_time_total / 1e3 for e in top},
+        **traced,
     }
     print(json.dumps(result))
     return 0
