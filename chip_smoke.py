@@ -18,10 +18,14 @@ non-zero, and nothing falls back to the CPU:
                yardstick) and the bound the card's memory rate sets;
   4. K2      — the lane-major twin against its plain version: random
                packings (F = 2, 6, 128, with and without init, with empty
-               windows), K1 transposed bitwise, and the chess readout plan
-               forced lane-major (forward and backward against the plain
-               gather), two launches bitwise equal; times at the WD-GCN
-               scale shape (1M labelled edges into 500k x 64 rows);
+               windows, windows of 256 and 2,048 rows), K1 transposed
+               bitwise, and the chess readout plan forced lane-major
+               (forward and backward against the plain gather), two
+               launches bitwise equal; times at the WD-GCN scale shape (1M
+               labelled edges into 500k x 64 rows), with K1 timed on the
+               same packing (its (J, C, F) slab made outside the timed
+               region) and the readout backward's other device work there
+               (the padded gather, the permute copy, the zero init);
   5. K1 bf16 and the restricted operators — K1's bf16-gather tier against
                its plain version (random packings; the chess_tmgcn2_cls
                train window's restricted layer-2 operator, forward and
@@ -52,7 +56,10 @@ non-zero, and nothing falls back to the CPU:
                d. the WD-GCN scale run of ``tmgcn_torch.utils.scale_bench``
                   (500,000 nodes x 64 slices, 1,000,000 labelled edges,
                   nnz_per_slice cut from 2,000,000 to 250,000): one K2
-                  launch per training step, no K1;
+                  launch per training step, no K1; then, outside the
+                  counts, 3 more warm steps traced with torch.profiler:
+                  device ms per step, busy share, launch calls per step,
+                  the top kernels' device ms;
                e. ``run_experiment`` of chess_tmgcn2_cls, spmm_impl="pallas",
                   200 epochs: 407 K1 launches (3 cached propagations, the
                   restricted layer 2 forward and backward per step, val and
@@ -114,6 +121,7 @@ DEVICE = "cuda"
 SCALE = {"n_nodes": 500_000, "n_slices": 64, "nnz_per_slice": 250_000,
          "n_edges": 1_000_000, "band": 20}
 SCALE_N_TIMED = 12  # -> 3 warm-up and 3 timed steps (scale_bench's rule)
+SCALE_TRACED_STEPS = 3
 
 
 def check(cond: bool, msg: str) -> None:
@@ -433,23 +441,25 @@ def phase_k2(torch, np, scale_edges) -> dict:
     max_err = 0.0
     for F in (2, 6, 128):
         for use_init in (False, True):
-            rows, cols, vals = _random_stream(np, 100 + F, 20_000)
-            p = tk.pack_windowed_flat(
-                rows, cols, vals, 20_000, sort_cols=True, all_windows=not use_init
-            ).to(dev)
-            g = torch.randn(p.n_chunks, F, p.chunk, device=dev)
+            for window in (256, 2048):  # past the old kernel's 1,024-row cap
+                rows, cols, vals = _random_stream(np, 100 + F, 20_000)
+                p = tk.pack_windowed_flat(
+                    rows, cols, vals, 20_000, window=window, sort_cols=True,
+                    all_windows=not use_init,
+                ).to(dev)
+                g = torch.randn(p.n_chunks, F, p.chunk, device=dev)
 
-            def init_fn(p=p, F=F, use_init=use_init):
-                return torch.zeros(F, p.n_rows_out, device=dev) if use_init else None
+                def init_fn(p=p, F=F, use_init=use_init):
+                    return torch.zeros(F, p.n_rows_out, device=dev) if use_init else None
 
-            max_err = max(max_err, _check_kernel(torch, k2, k2p, p, g, init_fn,
-                                                 f"K2 F={F} init={use_init}"))
-            # The same sums as K1, bitwise: same order, same rounding.
-            k1_out = tk.windowed_segment_matmul(p, g.transpose(1, 2).contiguous(),
-                                                init=None if init_fn() is None
-                                                else torch.zeros(p.n_rows_out, F, device=dev))
-            check(torch.equal(k2(p, g, init=init_fn()), k1_out.T),
-                  f"K2 F={F} init={use_init} is not K1 transposed")
+                what = f"K2 F={F} init={use_init} window={window}"
+                max_err = max(max_err, _check_kernel(torch, k2, k2p, p, g, init_fn, what))
+                # The same sums as K1, bitwise: same order, same rounding.
+                k1_out = tk.windowed_segment_matmul(p, g.transpose(1, 2).contiguous(),
+                                                    init=None if init_fn() is None
+                                                    else torch.zeros(p.n_rows_out, F, device=dev))
+                check(torch.equal(k2(p, g, init=init_fn()), k1_out.T),
+                      f"{what} is not K1 transposed")
     print(f"K2 random packings: ok (max abs err {max_err:.3e})")
 
     # The chess readout plan of chess_wdgcn_cls forced lane-major, forward
@@ -504,11 +514,24 @@ def phase_k2(torch, np, scale_edges) -> dict:
     torch.cuda.synchronize()
     lib_err, tol = _max_err(k2_out.T, lib_out)
     check(lib_err <= tol, f"K2 vs torch.sparse.mm at the scale shape: {lib_err} > {tol}")
-    del k2_out, lib_out
+    del lib_out
     timing = _time_shape(torch, k2, k2p, p, g, F, 2 * scale_edges.shape[1], (F, p.n_rows_out),
                          lambda: torch.sparse.mm(S, g_flat), "K2 WD-GCN scale plan")
+    del S, g_flat
+    # K1 on the same packing and sums: (J, C, F) slab and (n_rows_out, F)
+    # zero init made outside the timed region. The two layouts' times at
+    # one shape are what LANE_MAJOR_BYTES is to be set from.
+    g_k1 = g.transpose(1, 2).contiguous()
+    init_k1 = torch.zeros(p.n_rows_out, F, device=dev)
+    check(torch.equal(tk.windowed_segment_matmul(p, g_k1, init=init_k1), k2_out.T),
+          "K2 at the scale shape is not K1 transposed")
+    k1_ms = _time_ms(torch, lambda: tk.windowed_segment_matmul(p, g_k1, init=init_k1))
+    print(f"K1 at the scale packing ((J, C, F) in, (n_rows_out, F) out, zero init): kernel ms "
+          f"{k1_ms:.6f} (K2 {timing['ms']:.6f}, bound {timing['bound_ms']:.6f} for both)")
+    del g_k1, init_k1, k2_out
+    ops = _time_readout_backward_ops(torch, plan, F, scale_edges.shape[1])
     print(f"K2 max abs err over every check: {max_err:.3e}")
-    del plan, p, g, S, g_flat
+    del plan, p, g
     torch.cuda.empty_cache()
     return {
         "name": "windowed_segment_matmul_t",
@@ -518,7 +541,33 @@ def phase_k2(torch, np, scale_edges) -> dict:
         "max_abs_err": max_err,
         **timing,
         "shape": "WD-GCN scale readout plan (F=6, 2,000,000 entries into 32,000,000 rows)",
+        "k1_at_scale_packing_ms": k1_ms,
+        "readout_backward_ops_ms": ops,
     }
+
+
+def _time_readout_backward_ops(torch, plan, F: int, E: int) -> dict:
+    """The lane-major readout backward's device work around K2 at this plan's
+    shape (ops/edge_readout.py): the gather of the (F, 2E) gradient rows into
+    padded chunk order, the permute copy to (J, F, C), and the (F, n_rows_out)
+    zero init. Each moves the padded slab or the whole output, not the 2E
+    real rows."""
+    p = plan.packed
+    d_both_t = torch.randn(F, 2 * E, device=plan.sort_cols.device)
+    sel = d_both_t.index_select(1, plan.sort_cols)
+    ops = {
+        "index_select": _time_ms(torch, lambda: d_both_t.index_select(1, plan.sort_cols)),
+        "permute_copy": _time_ms(
+            torch, lambda: sel.reshape(F, p.n_chunks, p.chunk).permute(1, 0, 2).contiguous()),
+        "zero_init": _time_ms(
+            torch, lambda: torch.zeros((F, p.n_rows_out), device=plan.sort_cols.device)),
+    }
+    slab = 4 * F * p.n_chunks * p.chunk
+    print(f"readout backward at the scale shape, ms (CUDA events, L2 flushed): padded gather "
+          f"{ops['index_select']:.6f} ({slab} bytes written), permute copy "
+          f"{ops['permute_copy']:.6f} ({2 * slab} bytes moved), zero init {ops['zero_init']:.6f} "
+          f"({4 * F * p.n_rows_out} bytes)")
+    return ops
 
 
 @functools.cache
@@ -924,6 +973,7 @@ def phase_wdgcn_scale(torch, np, tk, inputs, t_build: float) -> tuple[int, int]:
     losses = out["losses"]
     check(losses.shape == (steps,) and bool(np.all(np.isfinite(losses))),
           f"WD-GCN scale: losses not finite: {losses}")
+    traced = _trace_scale_steps(torch, out["run"])
     print(f"WD-GCN scale ({SCALE['n_nodes']} nodes x {SCALE['n_slices']} slices, "
           f"{SCALE['n_edges']} labelled edges, nnz_per_slice {SCALE['nnz_per_slice']} — cut from "
           f"2000000 to shorten the host build; only the set-up depends on it): host build "
@@ -931,7 +981,46 @@ def phase_wdgcn_scale(torch, np, tk, inputs, t_build: float) -> tuple[int, int]:
           f"{out['wdgcn_first_run_s']:.3f} s, {out['wdgcn_ms_per_epoch']:.6f} ms/epoch, "
           f"{out['wdgcn_edges_per_s']:.1f} labelled edges/s; launches {launches} in "
           f"{steps} steps; losses {losses.tolist()}")
+    print(f"WD-GCN scale traced warm, {traced['profiled_epochs']} steps (outside the counts): "
+          f"device {traced['device_ms_per_profiled_epoch']:.6f} ms per step, busy share "
+          f"{traced['device_busy_share']:.4f}, wall "
+          f"{traced['profiled_wall_ms'] / traced['profiled_epochs']:.6f} ms per step, "
+          f"{traced['launch_calls_per_profiled_epoch']:.1f} launch calls per step; device ms by "
+          f"kernel (top 12, over the {traced['profiled_epochs']} steps) "
+          f"{json.dumps(traced['device_ms_by_kernel'])}; device ms per step of K2 and of the "
+          f"operators that launch the readout backward's gather, copy and fill (every call of "
+          f"each) {json.dumps(traced['device_ms_per_step_named'])}")
     return launches
+
+
+def _trace_scale_steps(torch, run) -> dict:
+    """SCALE_TRACED_STEPS more warm scale steps, traced as profile_slice
+    traces a chess epoch."""
+    from tmgcn_torch.utils import profile_slice
+
+    losses = []
+    traced, avg = profile_slice.trace(lambda: losses.append(run(SCALE_TRACED_STEPS)),
+                                      SCALE_TRACED_STEPS, top=12)
+    check(bool(torch.isfinite(losses[0]).all()), "WD-GCN scale traced steps: a loss is not finite")
+    check(traced["device_ms_per_profiled_epoch"] > 0, "WD-GCN scale: the trace shows no device time")
+    cuda = torch.autograd.DeviceType.CUDA
+
+    def per_step(match, total) -> float:
+        return sum(total(e) for e in avg if match(e)) / 1e3 / SCALE_TRACED_STEPS
+
+    # K2 by its kernel; the readout backward's gather, permute copy and zero
+    # fill by the operators that launch them, with the kernels of their
+    # child operators (index_select's gather kernel runs under one). The
+    # operators also serve other layers: phase 4 times each alone.
+    traced["device_ms_per_step_named"] = {
+        "K2 (row_segment_matmul_kernel)": per_step(
+            lambda e: e.device_type == cuda and "row_segment_matmul_kernel" in e.key,
+            lambda e: e.self_device_time_total),
+        **{op: per_step(lambda e, op=op: e.device_type != cuda and e.key == op,
+                        lambda e: e.device_time_total)
+           for op in ("aten::index_select", "aten::copy_", "aten::fill_")},
+    }
+    return traced
 
 
 def phase_tmgcn2(torch, np, tk) -> dict[str, tuple]:
@@ -972,8 +1061,9 @@ def _device_profile(impl: str) -> dict:
     from tmgcn_torch.utils import profile_slice
 
     _, run = profile_slice.build_runner("chess_tmgcn2_cls", impl)
-    run(profile_slice.TRACED_EPOCHS)  # this adapter's first launches
-    traced, _ = profile_slice.trace(run)
+    n = profile_slice.TRACED_EPOCHS
+    run(n)  # this adapter's first launches
+    traced, _ = profile_slice.trace(lambda: run(n, eval_every=n), n)
     check(traced["device_ms_per_profiled_epoch"] > 0,
           f"chess_tmgcn2_cls ({impl}): the trace shows no device time")
     print(f"chess_tmgcn2_cls ({impl}) traced warm, {traced['profiled_epochs']} epochs: "
@@ -1029,7 +1119,8 @@ def main() -> int:
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
     extra = ("shape", "launches_by_path", "train_window", "restricted_forward",
-             "restricted_backward", "cached_propagation")
+             "restricted_backward", "cached_propagation", "k1_at_scale_packing_ms",
+             "readout_backward_ops_ms")
     print(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [
         {**{k: kern[k] for k in keys}, **{k: kern[k] for k in extra if k in kern}}

@@ -193,7 +193,7 @@ def test_k3_matches_plain_and_repeats_bitwise(cuda_device, F, ut_cap, dtype):
     assert torch.equal(out, again)
 
 
-# Regimes of K1's and K3's row walk, at F = 6 (three threads a row).
+# Regimes of the row walk of K1 and K3 (three threads a row) and K2 (one), at F = 6.
 REGIMES = ("few_windows_many_chunks", "long_row", "padding_window")
 
 
@@ -244,6 +244,36 @@ def test_k1_row_walk_regimes(cuda_device, regime, use_init, dtype):
     assert torch.equal(out, again)
     if regime == "padding_window":
         assert torch.all(out[512:1536] == 0)
+
+
+@pytest.mark.parametrize("regime", REGIMES)
+@pytest.mark.parametrize("use_init", [False, True])
+@pytest.mark.parametrize("window", [256, 2048])
+def test_k2_row_walk_regimes(cuda_device, regime, use_init, window):
+    """K2 at F = 6 (one group of six features a thread) against its plain
+    version, one launch a call, bitwise repeat, and bit for bit K1's output
+    transposed; windows of 256 rows and of 2,048 (past the first CUDA K2's
+    1,024-row cap); with an init of 7s, windows without a chunk keep it."""
+    rows, cols, vals = _regime_stream(regime)
+    all_windows = regime == "padding_window" or not use_init
+    p = tk.pack_windowed_flat(rows, cols, vals, 2048, 64, window, True, all_windows).to(cuda_device)
+    g = torch.randn(p.n_chunks, 6, p.chunk, device=cuda_device)
+
+    def init(shape):
+        return torch.full(shape, 7.0, device=cuda_device) if use_init else None
+
+    before = tk.windowed_segment_matmul_t.launches
+    out = tk.windowed_segment_matmul_t(p, g, init=init((6, p.n_rows_out)))
+    again = tk.windowed_segment_matmul_t(p, g, init=init((6, p.n_rows_out)))
+    torch.cuda.synchronize()
+    assert tk.windowed_segment_matmul_t.launches == before + 2
+    ref = tk.windowed_segment_matmul_t_reference(p, g, init=init((6, p.n_rows_out)))
+    torch.testing.assert_close(out, ref, rtol=0, atol=ATOL * max(1.0, ref.abs().max().item()))
+    assert torch.equal(out, again)
+    k1 = tk.windowed_segment_matmul(p, g.transpose(1, 2).contiguous(), init=init((p.n_rows_out, 6)))
+    assert torch.equal(out, k1.T)
+    if regime == "padding_window":  # rows without entries in windows that own a chunk
+        assert torch.all(out[:, 512:1536] == 0)
 
 
 @pytest.mark.parametrize("regime", REGIMES)

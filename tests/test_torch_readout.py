@@ -69,6 +69,27 @@ class TestK2:
         if use_init:  # windows 3, 4 and 6 (rows 384-639, 768-895) have no entry
             assert np.all(ours.numpy()[:, 384:640] == 7.0)
 
+    @pytest.mark.parametrize("use_init", [False, True])
+    def test_any_window_matches_pallas_interpret(self, use_init):
+        """A 2048-row window, past the 1,024 rows the first CUDA K2 took:
+        the row walk has no cap, and neither has the JAX kernel."""
+        rows, cols, vals, _ = _stream(seed=8)
+        rows = rows * 4  # three windows of 2048 rows, the middle one without entries
+        rows[rows >= 2048] += 2048
+        p = tk.pack_windowed_flat(rows, cols, vals, 6144, 64, 2048, all_windows=not use_init)
+        assert p.window == 2048 and p.n_windows == 3
+        g = np.random.default_rng(9).standard_normal((p.n_chunks, 6, p.chunk)).astype(np.float32)
+        init = np.full((6, p.n_rows_out), 7.0, np.float32)
+        ours = tk.windowed_segment_matmul_t(
+            p.to("cpu"), torch.from_numpy(g), init=torch.from_numpy(init.copy()) if use_init else None
+        )
+        ref = jk.windowed_segment_matmul_t(
+            _jax_packed(p), jnp.asarray(g), interpret=True,
+            init=jnp.asarray(init) if use_init else None,
+        )
+        np.testing.assert_allclose(ours.numpy(), np.asarray(ref), rtol=0, atol=ATOL)
+        assert np.all(ours.numpy()[:, 2048:4096] == (7.0 if use_init else 0.0))
+
     def test_is_k1_transposed(self):
         rows, cols, vals, n_out = _stream(seed=4)
         p = tk.pack_windowed_flat(rows, cols, vals, n_out, 64, 128, sort_cols=True)

@@ -1,15 +1,18 @@
-"""The row index of K1's and K3's packings (``entry_order``, ``row_ptr``).
+"""The row index of K1's, K2's and K3's packings (``entry_order``, ``row_ptr``).
 
 The packers index the real entries (value != 0) by global output row, in
 chunk then entry order within a row; the CUDA kernels walk that index, one
 thread per output element. These CPU tests hold the index to that contract
 for both packers (sort_cols True and False, all_windows True and False, the
-empty stream, tiled packings), check that sums taken through it in float64
-give the plain versions' output, and that a float32 emulation of the
-kernels' row walk (its write rules included) does too. The arrays the JAX
-package also has must still equal its packers'. Tolerance 1e-5 · max(1,
-|reference|): float32 sums in another order than the float64 ones.
+empty stream, tiled packings, readout plans), check that sums taken through
+it in float64 give the plain versions' output, and that a float32 emulation
+of the kernels' row walk (its write rules included; K2's lane-major layout
+too, against the JAX package's K2 in interpret mode) does too. The arrays
+the JAX package also has must still equal its packers'. Tolerance 1e-5 ·
+max(1, |reference|): float32 sums in another order than the float64 ones.
 """
+
+import dataclasses
 
 import jax.numpy as jnp
 import numpy as np
@@ -18,6 +21,7 @@ import torch
 
 from tmgcn_tpu.kernels import spmm_pallas as jk
 from tmgcn_torch.kernels import spmm_cuda as tk
+from tmgcn_torch.ops.edge_readout import make_readout_plan
 
 ATOL = 1e-5
 K1_FIELDS = ("rows", "cols", "vals", "window_id", "is_first")
@@ -97,26 +101,51 @@ def _sum_through_index_f64(p, gathered: np.ndarray) -> np.ndarray:
     return out
 
 
-def _emulate_kernel(p, gathered: torch.Tensor, init: torch.Tensor | None) -> torch.Tensor:
+def _emulate_kernel(p, gathered: torch.Tensor, init: torch.Tensor | None,
+                    lane_major: bool = False) -> torch.Tensor:
     """The CUDA kernels' row walk on the CPU: each output row sums its
     indexed entries one by one in float32, each product rounded to the
     gathered type first; rows of windows without a chunk are written (as
-    0) only without an init."""
-    J, R, F = gathered.shape
-    dt = gathered.dtype
-    x = gathered.reshape(J * R, F)
-    src = torch.from_numpy(_source_rows(p, R))
-    vals = torch.from_numpy(p.vals.reshape(-1)).to(dt)
-    out = torch.zeros(p.n_rows_out, F) if init is None else init
+    0) only without an init. lane_major (K2): gathered is (J, F, C), slot
+    s = j*C + c reads feature f at flat offset (j*F + f)*C + c, and the
+    output is (F, n_rows_out)."""
+    if lane_major:
+        J, F, R = gathered.shape
+        flat = gathered.reshape(-1)
+        f_off = torch.arange(F) * R
+
+        def features(s):
+            j, c = divmod(s, R)
+            return flat[j * F * R + f_off + c]
+    else:
+        J, R, F = gathered.shape
+        x = gathered.reshape(J * R, F)
+        src = _source_rows(p, R)
+
+        def features(s):
+            return x[src[s]]
+    vals = torch.from_numpy(p.vals.reshape(-1)).to(gathered.dtype)
+    if init is None:
+        out = torch.zeros((F, p.n_rows_out) if lane_major else (p.n_rows_out, F))
+    else:
+        out = init
+    rows_of = out.T if lane_major else out  # output row r in either layout
     has_chunk = np.diff(p.window_ptr) > 0
     for r in range(p.n_rows_out):
         if init is not None and not has_chunk[r // p.window]:
             continue
         acc = torch.zeros(F)
         for s in p.entry_order[p.row_ptr[r]:p.row_ptr[r + 1]].tolist():
-            acc = acc + (vals[s] * x[src[s]]).float()
-        out[r] = acc
+            acc = acc + (vals[s] * features(s)).float()
+        rows_of[r] = acc
     return out
+
+
+def _numpy(p):
+    """A packing moved by ``.to`` back to numpy arrays."""
+    arrays = {f.name: getattr(p, f.name) for f in dataclasses.fields(p)}
+    return dataclasses.replace(p, **{k: v.numpy() for k, v in arrays.items()
+                                     if isinstance(v, torch.Tensor)})
 
 
 def _plain(p, gathered: torch.Tensor, init=None) -> torch.Tensor:
@@ -192,6 +221,16 @@ class TestIndex:
             assert isinstance(t, torch.Tensor) and t.dtype == torch.int32, f
             np.testing.assert_array_equal(t.numpy(), getattr(p, f), f)
 
+    @pytest.mark.parametrize("lane_major", [False, True])
+    def test_readout_plan_packing_is_indexed(self, lane_major):
+        """The readout plan's packing (K1's, or K2's past LANE_MAJOR_BYTES)."""
+        rng = np.random.default_rng(8)
+        T, N, E = 4, 300, 700
+        edges = np.stack([rng.integers(0, T, E), rng.integers(0, N, E), rng.integers(0, N, E)])
+        plan = make_readout_plan(edges, T, N, 64, 128, lane_major=lane_major)
+        assert plan.lane_major == lane_major
+        _assert_index(_numpy(plan.packed))
+
     @pytest.mark.parametrize("tile_dedup", [False, True])
     def test_flat_operator_packings_are_indexed(self, tile_dedup):
         """The restricted layer-2 operator's forward and transposed packings."""
@@ -262,3 +301,52 @@ class TestSumsThroughTheIndex:
         p = _k3(4, False, seed=4)
         g = torch.from_numpy(_gathered(p, 6, 5)).to(dtype)
         _assert_close(_emulate_kernel(p, g, None), _plain(p, g))
+
+
+def _jax_packed(p: tk.PackedSpmm) -> jk.PackedSpmm:
+    return jk.PackedSpmm(
+        rows=jnp.asarray(p.rows), cols=jnp.asarray(p.cols), vals=jnp.asarray(p.vals),
+        window_id=jnp.asarray(p.window_id), is_first=jnp.asarray(p.is_first),
+        n_rows_out=p.n_rows_out, chunk=p.chunk, window=p.window,
+    )
+
+
+class TestLaneMajorRowWalk:
+    """K2's walk of the same index: (J, F, C) in, (F, n_rows_out) out."""
+
+    @pytest.mark.parametrize("window", [128, 2048])  # 2048: past the old kernel's 1,024 cap
+    @pytest.mark.parametrize("use_init", [False, True])
+    @pytest.mark.parametrize("F", [1, 6, 128])
+    def test_k2_row_walk_matches_plain_and_jax(self, F, use_init, window):
+        """With an init of 7s, windows without a chunk keep it, and rows of
+        a visited window that have no entry are written 0."""
+        rows, cols, vals, n_out, _ = _stream(F)
+        p = tk.pack_windowed_flat(rows, cols, vals, n_out, 64, window, True, not use_init)
+        g = np.random.default_rng(F + 1).standard_normal((p.n_chunks, F, p.chunk)).astype(np.float32)
+
+        def init():
+            return torch.full((F, p.n_rows_out), 7.0) if use_init else None
+
+        out = _emulate_kernel(p, torch.from_numpy(g), init(), lane_major=True)
+        assert out.shape == (F, p.n_rows_out)
+        _assert_close(out, tk.windowed_segment_matmul_t_reference(p, torch.from_numpy(g), init=init()))
+        ref = jk.windowed_segment_matmul_t(
+            _jax_packed(p), jnp.asarray(g), interpret=True,
+            init=jnp.asarray(init().numpy()) if use_init else None,
+        )
+        _assert_close(out, np.asarray(ref))
+        visited = np.repeat(np.diff(p.window_ptr) > 0, p.window)
+        empty_row = np.diff(p.row_ptr) == 0
+        assert torch.all(out[:, visited & empty_row] == 0)
+        if use_init:
+            assert (~visited).any() == (window == 128)
+            assert torch.all(out[:, ~visited] == 7.0)
+
+    def test_k2_row_walk_is_k1_row_walk_transposed(self):
+        """The same sums in the same order, so bit for bit K1's transposed."""
+        p = _k1(True, False, seed=3)
+        g = torch.from_numpy(_gathered(p, 6, 4))
+        k1 = _emulate_kernel(p, g, torch.zeros(p.n_rows_out, 6))
+        k2 = _emulate_kernel(p, g.transpose(1, 2).contiguous(), torch.zeros(6, p.n_rows_out),
+                             lane_major=True)
+        assert torch.equal(k2, k1.T)

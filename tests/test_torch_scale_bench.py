@@ -64,3 +64,14 @@ def test_run_family_counts_its_steps():
     out = scale_bench.run_family("wdgcn", inputs, 4, "cpu")
     assert out["steps"] == 6  # max(4 // 4, 3) warm-up steps, then as many timed
     assert out["losses"].shape == (6,) and np.all(np.isfinite(out["losses"]))
+
+
+def test_run_family_runs_more_steps_from_where_it_ended():
+    """``run(n)``: n more steps on the same parameters, continuing the run."""
+    inputs = scale_bench.build_inputs(300, 3, 800, 200, 3)
+    out = scale_bench.run_family("wdgcn", inputs, 4, "cpu")
+    more = out["run"](2).numpy()
+    assert more.shape == (2,) and np.all(np.isfinite(more))
+    again = scale_bench.run_family("wdgcn", inputs, 4, "cpu")
+    np.testing.assert_array_equal(again["losses"], out["losses"])
+    assert not np.array_equal(more, out["losses"][:2])  # later steps, not a restart

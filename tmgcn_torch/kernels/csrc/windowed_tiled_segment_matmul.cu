@@ -55,9 +55,9 @@ extern "C" int tmgcn_windowed_tiled_segment_matmul_f32(
     const void* entry_order, const void* row_ptr, const void* uidx, const void* vals,
     const void* gathered, const void* window_ptr, void* out, int n_rows_out, int chunk, int u8,
     int n_feat, int window, int write_empty, void* stream) {
-  return row_segment::dispatch<true, float>(entry_order, row_ptr, uidx, vals, gathered,
-                                            window_ptr, out, n_rows_out, chunk, u8, n_feat,
-                                            window, write_empty, stream);
+  return row_segment::dispatch<true, false, float>(entry_order, row_ptr, uidx, vals, gathered,
+                                                   window_ptr, out, n_rows_out, chunk, u8, n_feat,
+                                                   window, write_empty, stream);
 }
 
 // K3, bf16 tier: gathered (J, u8, n_feat) bf16 -> out float32.
@@ -65,7 +65,7 @@ extern "C" int tmgcn_windowed_tiled_segment_matmul_bf16(
     const void* entry_order, const void* row_ptr, const void* uidx, const void* vals,
     const void* gathered, const void* window_ptr, void* out, int n_rows_out, int chunk, int u8,
     int n_feat, int window, int write_empty, void* stream) {
-  return row_segment::dispatch<true, __nv_bfloat16>(entry_order, row_ptr, uidx, vals, gathered,
-                                                    window_ptr, out, n_rows_out, chunk, u8,
-                                                    n_feat, window, write_empty, stream);
+  return row_segment::dispatch<true, false, __nv_bfloat16>(
+      entry_order, row_ptr, uidx, vals, gathered, window_ptr, out, n_rows_out, chunk, u8, n_feat,
+      window, write_empty, stream);
 }

@@ -31,8 +31,10 @@ NotImplementedError (ROADMAP queue 2).
 K2, ``windowed_segment_matmul_t``, is the same sums with the layout
 transposed — (J, F, C) chunks in, (F, n_rows_out) out — and replaces the
 Pallas kernel ``windowed_segment_matmul_t`` (body ``_scatter_kernel_t``,
-tmgcn_tpu/kernels/spmm_pallas.py:724-824). Its one user is the
-``ReadoutPlan`` backward past ``LANE_MAJOR_BYTES`` (ops/edge_readout.py).
+tmgcn_tpu/kernels/spmm_pallas.py:724-824). It walks the same row index as
+K1, with consecutive threads on consecutive rows so that its transposed
+stores coalesce, and takes any window. Its one user is the ``ReadoutPlan``
+backward past ``LANE_MAJOR_BYTES`` (ops/edge_readout.py).
 
 K3, ``windowed_tiled_segment_matmul`` (``csrc/windowed_tiled_segment_matmul.cu``),
 replaces the Pallas kernel of the same name (body ``_tiled_scatter_kernel``,
@@ -63,7 +65,6 @@ from tmgcn_torch.ops.spmm_rowsplit import flatten_stream
 
 DEFAULT_CHUNK = 256
 DEFAULT_WINDOW = 256
-MAX_WINDOW = 1024  # K2: one thread per output row of a window
 GATHER_DTYPES = {None: None, "bfloat16": torch.bfloat16}
 
 
@@ -107,7 +108,8 @@ class PackedSpmm:
     window_ptr: (n_windows + 1,) int32 — chunks of window w are
         [window_ptr[w], window_ptr[w + 1]); derived from window_id.
     entry_order: (nnz,) int32 — flat slot ids j*C + c of the real entries,
-        grouped by global output row (``_row_index``); K1's work list.
+        grouped by global output row (``_row_index``); K1's and K2's
+        work list.
     row_ptr: (n_rows_out + 1,) int32 — row r's entries are
         entry_order[row_ptr[r]:row_ptr[r + 1]].
     n_rows_out: padded output rows (a multiple of window).
@@ -549,24 +551,27 @@ def _output(
 
 def _launch_rows(
     symbol: str, packed: PackedSpmm | PackedTiled, gathered: torch.Tensor,
-    init: torch.Tensor | None,
+    init: torch.Tensor | None, lane_major: bool = False,
 ) -> torch.Tensor:
-    """Check the arguments of K1 or K3 (by the packing's type) and launch it
-    on the current stream: one launch over the packing's row index."""
+    """Check the arguments of K1, K2 (``lane_major``: (J, F, C) in, (F,
+    n_rows_out) out) or K3 (by the packing's type) and launch it on the
+    current stream: one launch over the packing's row index."""
     device = gathered.device
-    F = gathered.shape[-1]
+    F = gathered.shape[1 if lane_major else -1]
     _check_cuda("gathered", gathered, gathered.dtype, device)
     _check_cuda("packed.entry_order", packed.entry_order, torch.int32, device)
     _check_cuda("packed.row_ptr", packed.row_ptr, torch.int32, device)
     if packed.row_ptr.shape != (packed.n_rows_out + 1,):
         raise ValueError("packed.row_ptr must have n_rows_out + 1 entries")
-    out = _output(packed, (packed.n_rows_out, F), init, device)
+    out_shape = (F, packed.n_rows_out) if lane_major else (packed.n_rows_out, F)
+    out = _output(packed, out_shape, init, device)
+    source, tile_ptrs, tile_ints = "windowed_segment_matmul.cu", [], []
     if isinstance(packed, PackedTiled):
         _check_cuda("packed.uidx", packed.uidx, torch.int32, device)
         source = "windowed_tiled_segment_matmul.cu"
         tile_ptrs, tile_ints = [packed.uidx.data_ptr()], [packed.chunk, gathered.shape[1]]
-    else:
-        source, tile_ptrs, tile_ints = "windowed_segment_matmul.cu", [], []
+    elif lane_major:
+        tile_ints = [packed.chunk]
     if packed.n_rows_out == 0:
         return out
     ptrs = [packed.entry_order.data_ptr(), packed.row_ptr.data_ptr(), *tile_ptrs,
@@ -633,9 +638,8 @@ def windowed_segment_matmul_t(
     same ``init`` semantics (an (F, n_rows_out) zero tensor used as the
     output itself; windows without a chunk are not written), the same
     device policy (the kernel on a CUDA tensor, the plain version on a CPU
-    tensor, an error otherwise). Float32 only. Its kernel still scans each
-    window's chunk slots (one block per window, thread r owning row r), so
-    the window is at most MAX_WINDOW rows.
+    tensor, an error otherwise), the same row walk, any window. Float32
+    only.
     """
     if gathered_t.device.type == "cpu":
         return windowed_segment_matmul_t_reference(packed, gathered_t, out_dtype, init)
@@ -646,30 +650,8 @@ def windowed_segment_matmul_t(
     F = gathered_t.shape[1] if gathered_t.dim() == 3 else 0
     if gathered_t.shape != (J, F, C) or F < 1:
         raise ValueError(f"gathered_t must be ({J}, F>=1, {C}), got {tuple(gathered_t.shape)}")
-    if packed.window > MAX_WINDOW:
-        raise ValueError(f"window {packed.window} > {MAX_WINDOW}")
-    device = gathered_t.device
-    _check_cuda("gathered_t", gathered_t, torch.float32, device)
-    _check_cuda("packed.rows", packed.rows, torch.int32, device)
-    out = _output(packed, (F, packed.n_rows_out), init, device)
-    symbol = "tmgcn_windowed_segment_matmul_t_f32"
-    if packed.n_windows:
-        with torch.cuda.device(device):
-            err = _kernel("windowed_segment_matmul.cu", symbol, 5, 5)(
-                packed.rows.data_ptr(),
-                packed.vals.data_ptr(),
-                gathered_t.data_ptr(),
-                packed.window_ptr.data_ptr(),
-                out.data_ptr(),
-                packed.n_windows,
-                packed.chunk,
-                F,
-                packed.window,
-                0 if init is not None else 1,
-                torch.cuda.current_stream(device).cuda_stream,
-            )
-        if err != 0:
-            raise RuntimeError(f"{symbol} launch failed: CUDA error {err}")
+    out = _launch_rows("tmgcn_windowed_segment_matmul_t_f32", packed, gathered_t, init,
+                       lane_major=True)
     windowed_segment_matmul_t.launches += 1
     return out
 

@@ -76,14 +76,14 @@ def build_runner(preset: str, spmm_impl: str | None = None):
     return cfg, run
 
 
-def trace(run, n_epochs: int = TRACED_EPOCHS) -> tuple[dict, object]:
-    """A traced warm run of n_epochs (one evaluation epoch): device ms per
+def trace(run_epochs, n_epochs: int = TRACED_EPOCHS, top: int = 8) -> tuple[dict, object]:
+    """``run_epochs()``, a warm run of n_epochs, traced: device ms per
     epoch, the device's busy share of the wall time, host launch calls per
-    epoch and the top kernels' device ms; and the profiler's averages."""
+    epoch and the ``top`` kernels' device ms; and the profiler's averages."""
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
-        run(n_epochs, eval_every=n_epochs)
+        run_epochs()
         torch.cuda.synchronize()
         wall_us = 1e6 * (time.perf_counter() - t0)
     avg = prof.key_averages()
@@ -96,7 +96,11 @@ def trace(run, n_epochs: int = TRACED_EPOCHS) -> tuple[dict, object]:
         if e.device_type == torch.autograd.DeviceType.CUDA and not getattr(e, "is_user_annotation", False)
     ]
     device_us = sum(e.self_device_time_total for e in on_device)
-    top = sorted(on_device, key=lambda e: -e.self_device_time_total)[:8]
+    # Names cut to 80 characters can collide (template instances of one
+    # kernel): their times add up.
+    by_kernel: dict[str, float] = {}
+    for e in on_device:
+        by_kernel[e.key[:80]] = by_kernel.get(e.key[:80], 0.0) + e.self_device_time_total / 1e3
     return {
         "profiled_epochs": n_epochs,
         "profiled_wall_ms": wall_us / 1e3,
@@ -106,7 +110,7 @@ def trace(run, n_epochs: int = TRACED_EPOCHS) -> tuple[dict, object]:
         "launch_calls_per_profiled_epoch": sum(
             e.count for e in avg if e.key in ("cudaLaunchKernel", "cuLaunchKernel", "cuLaunchKernelEx")
         ) / n_epochs,
-        "device_ms_by_kernel": {e.key[:80]: e.self_device_time_total / 1e3 for e in top},
+        "device_ms_by_kernel": dict(sorted(by_kernel.items(), key=lambda kv: -kv[1])[:top]),
     }, avg
 
 
@@ -124,7 +128,7 @@ def main(argv=None) -> int:
         torch.cuda.synchronize()
         warm_ms.append(1e3 * (time.perf_counter() - t0) / EPOCHS)
 
-    traced, avg = trace(run)
+    traced, avg = trace(lambda: run(TRACED_EPOCHS, eval_every=TRACED_EPOCHS))
     print(avg.table(sort_by="self_device_time_total", row_limit=12))
     print(avg.table(sort_by="self_cpu_time_total", row_limit=12))
     result = {

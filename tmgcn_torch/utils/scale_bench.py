@@ -110,7 +110,8 @@ def _sync(device: torch.device) -> None:
 def timed_epochs(adapter, tgt: torch.Tensor, cw: torch.Tensor, n_steps: int):
     """n_steps SGD steps twice: the first run pays the first launches, the
     second is timed. Returns (seconds per step, first-run seconds, every
-    step's loss as numpy)."""
+    step's loss as numpy, and ``run(n)``, which takes n more steps from where
+    the timed ones ended and returns their losses as a tensor)."""
     from tmgcn_torch.train.loop import TrainConfig, _optimizer, _tree_leaves
     from tmgcn_torch.train.losses import weighted_cross_entropy
 
@@ -125,9 +126,9 @@ def timed_epochs(adapter, tgt: torch.Tensor, cw: torch.Tensor, n_steps: int):
     opt = _optimizer(TrainConfig(lr=0.01, momentum=0.9), _tree_leaves(params))
     bundle = adapter.bundles["train"]
 
-    def run():
+    def run(n):
         losses = []
-        for _ in range(n_steps):
+        for _ in range(n):
             opt.zero_grad()
             out, _ = adapter.apply({"params": params, "buffers": buffers}, bundle, ())
             loss = weighted_cross_entropy(out, tgt, cw)
@@ -138,19 +139,21 @@ def timed_epochs(adapter, tgt: torch.Tensor, cw: torch.Tensor, n_steps: int):
 
     _sync(device)
     t0 = time.perf_counter()
-    first = run().cpu().numpy()
+    first = run(n_steps).cpu().numpy()
     t_first = time.perf_counter() - t0
     t0 = time.perf_counter()
-    timed = run().cpu().numpy()
+    timed = run(n_steps).cpu().numpy()
     dt = (time.perf_counter() - t0) / n_steps
-    return dt, t_first, np.concatenate([first, timed])
+    return dt, t_first, np.concatenate([first, timed]), run
 
 
 def run_family(fam: str, inputs, n_timed: int, device: str | torch.device) -> dict:
     """Build one family's adapter on the shared inputs and time its epochs.
 
     Returns the tool's keys for the family (build seconds, ms/epoch,
-    edges/s) and ``steps`` / ``losses`` of every training step run.
+    edges/s), ``steps`` / ``losses`` of every training step run, and
+    ``run(n)``: n more steps on the same adapter and parameters (a warm
+    run to trace).
     """
     from tmgcn_torch.tasks.adapters import WINDOWS, make_edge_adapter
 
@@ -170,7 +173,7 @@ def run_family(fam: str, inputs, n_timed: int, device: str | torch.device) -> di
     n = n_timed if fam == "tmgcn1" else max(n_timed // 4, 3)
     tgt = torch.as_tensor(tgt_np, device=device)
     cw = torch.as_tensor(cw_np, device=device)
-    dt, t_first, losses = timed_epochs(adapter, tgt, cw, n)
+    dt, t_first, losses, run = timed_epochs(adapter, tgt, cw, n)
     n_edges = edges.shape[1]
     return {
         f"{key}_build_s": build_s,
@@ -179,6 +182,7 @@ def run_family(fam: str, inputs, n_timed: int, device: str | torch.device) -> di
         f"{key}_edges_per_s": n_edges / dt,
         "steps": 2 * n,
         "losses": losses,
+        "run": run,
     }
 
 
