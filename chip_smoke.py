@@ -15,7 +15,11 @@ non-zero, and nothing falls back to the CPU:
                backward) and the chess readout-plan packing at F = 6
                (zero init), two launches bitwise equal; times at both
                chess shapes (kernel, plain version, torch.sparse.mm
-               yardstick) and the bound the card's memory rate sets;
+               yardstick) and the bound the card's memory rate sets; then
+               the same at chess_wdgcn_lp's readout plan (2E = 1,545,040
+               endpoint rows of the train window's model edges into 79 x
+               7,301 rows, F = 6, zero init), K1's launch in each of that
+               path's training steps;
   4. K2      — the lane-major twin against its plain version: random
                packings (F = 2, 6, 128, with and without init, with empty
                windows, windows of 256 and 2,048 rows), K1 transposed
@@ -75,6 +79,19 @@ non-zero, and nothing falls back to the CPU:
                   is "auto": block-dense on chess, no K1);
                h. the preset as it stands ("jnp": auto, block-dense), 200
                   epochs: no hand-written kernel launched;
+               i. ``run_experiment`` of chess_tmgcn_lp (link prediction,
+                  772,520 training edges, (epochs, 9) MAP-MRR rows), 200
+                  epochs: with spmm_impl="pallas" 3 K1 launches (the cached
+                  propagation of the three 79-slice windows), a warm rerun
+                  with the same rows, 5 epochs against the CPU's plain path;
+                  with the preset's "jnp" no kernel, 5 epochs against the
+                  CPU;
+               j. ``run_experiment`` of chess_wdgcn_lp (the preset's "jnp"),
+                  200 epochs: 200 K1 launches (the readout plan's backward,
+                  one per training step), a warm rerun with the same rows, 5
+                  epochs against the CPU's plain path; then, for both LP
+                  presets, the host scoring of one evaluation epoch (MAP,
+                  MRR and loss of the three windows) timed alone;
   8. a JSON line {"kernels": [...]} with every ported kernel's numbers;
   9. last line: {"ok": true, "device": {...}}.
 
@@ -430,6 +447,90 @@ def phase_k1(torch, np) -> tuple[dict, int]:
         "shape": "chess readout plan (F=6, 78,384 entries, zero init)",
         "train_window": train_window,
     }, e_train
+
+
+@functools.cache
+def _chess_lp_data():
+    """chess_wdgcn_lp's data (its LP edges are chess_tmgcn_lp's: one edge
+    list, one seed), built once."""
+    from tmgcn_torch.configs.build import build_data
+    from tmgcn_torch.configs.presets import get_preset
+
+    return build_data(get_preset("chess_wdgcn_lp"), data_dir=DATA_DIR)
+
+
+def _chess_lp_splits(same_block: bool):
+    from tmgcn_torch.tasks.windows import split_data_link_prediction
+
+    data = _chess_lp_data()
+    spec = dataclasses.replace(data.spec, same_block_size=same_block)
+    return split_data_link_prediction(data.lp_edges, data.lp_labels, spec)
+
+
+def _chess_wdgcn_lp_train_edges():
+    """chess_wdgcn_lp's train-window model edges (the readout plan's input),
+    T = s_train - 1 model slices, N."""
+    data = _chess_lp_data()
+    edges = _chess_lp_splits(False)["train"].model_edges
+    return edges, data.spec.s_train - 1, data.adj["train"].n_nodes
+
+
+def _lp_eval_seconds(np, same_block: bool) -> dict:
+    """Host seconds of one LP evaluation epoch's scoring (map_mrr and the
+    loss of the train window's model edges and of val's and test's scored
+    edges), on logits made from a seed: the part of an evaluation epoch that
+    runs on the host after the logits are fetched."""
+    from tmgcn_torch.tasks import metrics as M
+
+    rng = np.random.default_rng(0)
+    out = {}
+    for w, s in _chess_lp_splits(same_block).items():
+        if w == "train" or s.n_eval_tail is None:
+            keep = s.edges[0] != 0
+            tgt, e = s.target[keep], s.edges[:, keep]
+        else:
+            tgt, e = s.target[-s.n_eval_tail:], s.edges[:, -s.n_eval_tail:]
+        logits = rng.standard_normal((tgt.size, 2)).astype(np.float32)
+        t0 = time.perf_counter()
+        M.map_mrr(logits, tgt, e)
+        M.weighted_ce_loss_np(logits, tgt, np.array([0.9, 0.1]))
+        out[w] = time.perf_counter() - t0
+    return out
+
+
+def phase_k1_lp(torch, np) -> tuple[dict, float]:
+    """K1 at chess_wdgcn_lp's readout-plan packing: against its plain
+    version and torch.sparse.mm, bitwise repeat, times beside the bound."""
+    from tmgcn_torch.kernels import spmm_cuda as tk
+    from tmgcn_torch.ops.edge_readout import make_readout_plan
+
+    dev = torch.device(DEVICE)
+    k1, k1p = tk.windowed_segment_matmul, tk.windowed_segment_matmul_reference
+    edges, T, N = _chess_wdgcn_lp_train_edges()
+    t0 = time.perf_counter()
+    plan = make_readout_plan(edges, T, N).to(dev)
+    t_plan = time.perf_counter() - t0
+    check(not plan.lane_major, "the chess LP readout plan picked the lane-major layout")
+    p, F = plan.packed, 6
+    print(f"K1 chess LP readout plan built in {t_plan:.3f} s: {2 * edges.shape[1]} entries in "
+          f"{p.n_chunks} chunks of {p.chunk} slots into {p.n_rows_out} rows")
+    g = torch.randn(p.n_chunks, p.chunk, F, device=dev)
+    err = _check_kernel(torch, k1, k1p, p, g,
+                        lambda: torch.zeros(p.n_rows_out, F, device=dev), "K1 chess LP readout plan")
+    S = _slot_csr(torch, p, p.vals != 0)
+    g_flat = g.reshape(-1, F)
+    lib_out = torch.sparse.mm(S, g_flat)
+    k1_out = k1(p, g, init=torch.zeros(p.n_rows_out, F, device=dev))
+    torch.cuda.synchronize()
+    lib_err, tol = _max_err(k1_out, lib_out)
+    check(lib_err <= tol, f"K1 vs torch.sparse.mm at the LP readout shape: {lib_err} > {tol}")
+    timing = _time_shape(torch, k1, k1p, p, g, F, 2 * edges.shape[1], (p.n_rows_out, F),
+                         lambda: torch.sparse.mm(S, g_flat), "K1 chess LP readout plan")
+    del plan, p, g, S, g_flat, lib_out, k1_out
+    torch.cuda.empty_cache()
+    timing["shape"] = (f"chess_wdgcn_lp readout plan (F=6, {2 * edges.shape[1]:,} entries into "
+                       f"{T} x {N} rows, zero init)")
+    return timing, err
 
 
 def phase_k2(torch, np, scale_edges) -> dict:
@@ -872,6 +973,16 @@ def _check_rows(np, res, what: str) -> None:
               f"{what}: F1 NaN with a true positive")
 
 
+def _check_lp_rows(np, res, what: str) -> None:
+    """(epochs, 9) MAP-MRR rows: losses finite, MAP and MRR in [0, 1] or NaN
+    (NaN where a window slice keeps no row with a fake edge)."""
+    check(res.shape[1] == 9, f"{what}: results are not (epochs, 9)")
+    check(bool(np.all(np.isfinite(res[:, [2, 5, 8]]))), f"{what}: a loss is not finite")
+    rates = res[:, [0, 1, 3, 4, 6, 7]]
+    check(bool(np.all(np.isnan(rates) | ((rates >= 0) & (rates <= 1)))),
+          f"{what}: MAP or MRR outside [0, 1]")
+
+
 def _counted(tk, fn):
     """Run fn with every launch count set to 0; (result, the counts in
     COUNTERS order: K1, K1 bf16, K2, K3, K3 bf16)."""
@@ -893,15 +1004,22 @@ def _run_slice(torch, np, tk, cfg, e_train: int, expected: tuple, epochs: int = 
           f"{name}: (K1, K1 bf16, K2, K3, K3 bf16) launched {launches} times on the main path, "
           f"expected {expected}")
     (res,) = out["results"].values()
-    check(res.shape == (epochs, 12), f"{name}: results shape {res.shape}")
-    _check_rows(np, res, f"{name} cuda run")
+    lp = cfg.task == "link_pred"
+    width = 9 if lp else 12
+    check(res.shape == (epochs, width), f"{name}: results shape {res.shape}")
+    (_check_lp_rows if lp else _check_rows)(np, res, f"{name} cuda run")
     sec = out["seconds"]
     print(f"slice {name} cuda, first run: {epochs} epochs, (K1, K1 bf16, K2, K3, K3 bf16) "
           f"launches {launches}; data {sec['data']:.3f} s, adapter {sec['adapter']:.3f} s, "
           f"train {sec['train']:.3f} s ({1e3 * sec['train'] / epochs:.6f} ms/epoch with the "
           f"process's first launches)")
-    print(f"slice {name} final row: train f1 {res[-1, 2]:.4f} loss {res[-1, 3]:.6f} | "
-          f"val f1 {res[-1, 6]:.4f} | test f1 {res[-1, 10]:.4f}")
+    if lp:
+        print(f"slice {name} final row: train MAP {res[-1, 0]:.4f} MRR {res[-1, 1]:.6f} loss "
+              f"{res[-1, 2]:.6f} | val MAP {res[-1, 3]:.4f} MRR {res[-1, 4]:.6f} | test MAP "
+              f"{res[-1, 6]:.4f} MRR {res[-1, 7]:.6f}")
+    else:
+        print(f"slice {name} final row: train f1 {res[-1, 2]:.4f} loss {res[-1, 3]:.6f} | "
+              f"val f1 {res[-1, 6]:.4f} | test f1 {res[-1, 10]:.4f}")
     if warm:
         # The same run again, warm: the steady-state epoch time.
         again = run_experiment(cfg, data_dir=DATA_DIR, n_epochs=epochs, verbose=False,
@@ -911,17 +1029,30 @@ def _run_slice(torch, np, tk, cfg, e_train: int, expected: tuple, epochs: int = 
               f"{name}: a repeated run gave other rows")
         t_warm = again["seconds"]["train"]
         print(f"slice {name} warm run: {1e3 * t_warm / epochs:.6f} ms/epoch, "
-              f"{e_train * epochs / t_warm:.1f} labelled edges/s ({e_train} training edges, "
-              f"{epochs} epochs, {-(-epochs // 100)} evaluation epochs)")
+              f"{e_train * epochs / t_warm:.1f} {'training' if lp else 'labelled'} edges/s "
+              f"({e_train} training edges, {epochs} epochs, "
+              f"{-(-epochs // cfg.eval_every)} evaluation epochs)")
 
     # Reference: the same run on the CPU's plain path, first epochs.
     ref = run_experiment(cfg, data_dir=DATA_DIR, n_epochs=REF_EPOCHS, verbose=False,
                          device="cpu")
     (ref_res,) = ref["results"].values()
     got = res[:REF_EPOCHS]
-    losses = [3, 7, 11]
+    losses = [2, 5, 8] if lp else [3, 7, 11]
     check(bool(np.allclose(got[:, losses], ref_res[:, losses], rtol=rtol, atol=0)),
           f"{name}: losses differ from the CPU plain path: {got[:, losses]} vs {ref_res[:, losses]}")
+    if lp:
+        # MAP and MRR within rtol 1e-3, NaN only where the CPU path has NaN.
+        rates = [0, 1, 3, 4, 6, 7]
+        same_nan = np.isnan(got[:, rates]) == np.isnan(ref_res[:, rates])
+        close = np.nan_to_num(np.abs(got[:, rates] - ref_res[:, rates])
+                              - 1e-3 * np.abs(ref_res[:, rates]), nan=0.0) <= 0
+        check(bool(np.all(same_nan & close)),
+              f"{name}: MAP/MRR differ from the CPU plain path: {got[:, rates]} vs "
+              f"{ref_res[:, rates]}")
+        print(f"slice {name} vs CPU plain path, {REF_EPOCHS} epochs: losses within rtol {rtol}, "
+              f"MAP and MRR within rtol 1e-3")
+        return launches
     f1s = [2, 6, 10]
     same_nan = np.isnan(got[:, f1s]) == np.isnan(ref_res[:, f1s])
     close = np.nan_to_num(np.abs(got[:, f1s] - ref_res[:, f1s]), nan=0.0) <= 1e-3
@@ -1055,6 +1186,31 @@ def phase_tmgcn2(torch, np, tk) -> dict[str, tuple]:
     return counts, profiles
 
 
+def phase_lp(torch, np, tk) -> dict[str, tuple]:
+    """chess_tmgcn_lp (pallas and the preset) and chess_wdgcn_lp through
+    run_experiment: launch counts, warm reruns, the CPU plain path."""
+    from tmgcn_torch.configs.presets import get_preset
+
+    edges, _, _ = _chess_wdgcn_lp_train_edges()
+    e_train = edges.shape[1]  # the train window's model edges, the same for both presets
+    counts = {}
+    base = get_preset("chess_tmgcn_lp")
+    check(base.spmm_impl == "jnp", "chess_tmgcn_lp is expected to name spmm_impl jnp")
+    counts["chess_tmgcn_lp pallas"] = _run_slice(
+        torch, np, tk, dataclasses.replace(base, spmm_impl="pallas"), e_train, (3, 0, 0, 0, 0))
+    counts["chess_tmgcn_lp preset (jnp)"] = _run_slice(
+        torch, np, tk, base, e_train, (0, 0, 0, 0, 0), warm=False)
+    wd = get_preset("chess_wdgcn_lp")
+    check(wd.spmm_impl == "jnp", "chess_wdgcn_lp is expected to name spmm_impl jnp")
+    counts["chess_wdgcn_lp"] = _run_slice(torch, np, tk, wd, e_train, (EPOCHS, 0, 0, 0, 0))
+    for name, same_block in (("chess_tmgcn_lp", True), ("chess_wdgcn_lp", False)):
+        sec = _lp_eval_seconds(np, same_block)
+        print(f"{name}: host scoring of one evaluation epoch {sum(sec.values()):.3f} s "
+              f"(map_mrr and loss; train {sec['train']:.3f}, val {sec['val']:.3f}, "
+              f"test {sec['test']:.3f} s)")
+    return counts
+
+
 def _device_profile(impl: str) -> dict:
     """chess_tmgcn2_cls with one spmm_impl: a warm-up run, then a traced
     run of profile_slice's 21 epochs; device ms per epoch and busy share."""
@@ -1092,6 +1248,8 @@ def main() -> int:
     phase_card()
     phase_build()
     k1, e_train = phase_k1(torch, np)
+    k1["lp_readout_backward"], lp_err = phase_k1_lp(torch, np)
+    k1["max_abs_err"] = max(k1["max_abs_err"], lp_err)
     t0 = time.perf_counter()
     inputs = scale_bench.build_inputs(**SCALE)
     t_scale_build = time.perf_counter() - t0
@@ -1105,6 +1263,7 @@ def main() -> int:
     by_path["wdgcn scale 500k x 64"] = phase_wdgcn_scale(torch, np, tk, inputs, t_scale_build)
     tmgcn2_counts, profiles = phase_tmgcn2(torch, np, tk)
     by_path.update(tmgcn2_counts)
+    by_path.update(phase_lp(torch, np, tk))
     check("jax" not in sys.modules and "tmgcn_tpu" not in sys.modules,
           "the JAX package was imported")
     kernels = (k1, k1_bf16, k2, k3, k3_bf16)
@@ -1118,7 +1277,7 @@ def main() -> int:
         {impl: p["device_ms_per_profiled_epoch"] for impl, p in profiles.items()}))
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
-    extra = ("shape", "launches_by_path", "train_window", "restricted_forward",
+    extra = ("shape", "launches_by_path", "train_window", "lp_readout_backward", "restricted_forward",
              "restricted_backward", "cached_propagation", "k1_at_scale_packing_ms",
              "readout_backward_ops_ms")
     print(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s")

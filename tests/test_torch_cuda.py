@@ -351,3 +351,64 @@ def test_restricted_layer2_on_the_card(cuda_device, operator):
     rel = 3e-2 if operator == "blockdense_bf16" else 2e-2 if operator == "pallas_bf16" else 1e-5
     for a, b in zip(on_card, run("cpu")):
         torch.testing.assert_close(a, b, rtol=0, atol=rel * max(1.0, b.abs().max().item()))
+
+
+# (family, spmm_impl, K1 launches in 4 epochs: the cached propagation of 3
+# distinct windows, or the readout plan's backward once per training step)
+LP_CASES = {"tmgcn1_pallas": ("tmgcn", "pallas", 3), "wdgcn_jnp": ("wdgcn", "jnp", 4),
+            "tmgcn2_pallas": ("tmgcn2", "pallas", 3 + 2 * 4 + 4)}
+
+
+@pytest.mark.parametrize("case", sorted(LP_CASES))
+def test_link_prediction_on_the_card(cuda_device, case):
+    """run_link_prediction on the card against the CPU's plain path: K1 as
+    often as the path needs, the same (epochs, 9) rows (losses rtol 1e-4,
+    MAP and MRR rtol 1e-3), a repeated run bitwise equal."""
+    from tmgcn_torch.core.mmatrix import make_m_matrix
+    from tmgcn_torch.models.tmgcn import TMGCN, TMGCN2
+    from tmgcn_torch.models.wdgcn import WDGCN
+    from tmgcn_torch.tasks.adapters import make_edge_adapter
+    from tmgcn_torch.tasks.sampling import augment_edges
+    from tmgcn_torch.tasks.windows import WindowSpec, split_data_link_prediction
+    from tmgcn_torch.train.loop import TrainConfig, run_link_prediction
+
+    family, impl, k1_launches = LP_CASES[case]
+    rng = np.random.default_rng(7)
+    T_all, N, E = 12, 300, 2400
+    spec = WindowSpec(8, 2, 2, same_block_size=family != "wdgcn")
+    dense = (rng.random((T_all, N, N)) < 0.03) * rng.random((T_all, N, N))
+    X = rng.standard_normal((T_all, N, 2)).astype(np.float32)
+    real = np.stack([np.sort(rng.integers(0, T_all, E)), rng.integers(0, N, E),
+                     rng.integers(0, N, E)])
+    splits = split_data_link_prediction(*augment_edges(real, N, 4, 4, 12, seed=1), spec)
+    windows = {w: spec.bounds(w) for w in ("train", "val", "test")}
+    adj = {w: TemporalCOO.from_dense(dense[a:b], pad_multiple=16) for w, (a, b) in windows.items()}
+    feats = {w: X[a:b] for w, (a, b) in windows.items()}
+    edges = {w: splits[w].model_edges for w in windows}
+    kw = dict(n_slices=7, in_feat=2, spmm_impl=impl)
+    M = None
+    if family == "wdgcn":
+        model = WDGCN(hidden_feat=(6, 2), **kw)
+    elif family == "tmgcn":
+        model, M = TMGCN(hidden_feat=(6, 2), **kw), make_m_matrix(8, 3)
+    else:
+        model, M = TMGCN2(hidden_feat=(6, 6, 2), nonlin2="selu", **kw), make_m_matrix(8, 3)
+    variables = model.init(torch.Generator().manual_seed(0))
+    cfg = TrainConfig(n_epochs=4, eval_every=3)
+
+    def run(device):
+        ad = make_edge_adapter(model, adj, feats, edges, M=M, drop_last_slice=True,
+                               device=device)
+        res, _ = run_link_prediction(ad, splits, np.array([0.9, 0.1]), cfg, variables=variables)
+        return res
+
+    before = tk.windowed_segment_matmul.launches
+    on_card = run(cuda_device)
+    assert tk.windowed_segment_matmul.launches - before == k1_launches
+    assert on_card.shape == (4, 9)
+    np.testing.assert_array_equal(run(cuda_device), on_card)
+    ref = run("cpu")
+    np.testing.assert_allclose(on_card[:, [2, 5, 8]], ref[:, [2, 5, 8]], rtol=1e-4)
+    rates = [0, 1, 3, 4, 6, 7]
+    np.testing.assert_array_equal(np.isnan(on_card[:, rates]), np.isnan(ref[:, rates]))
+    np.testing.assert_allclose(on_card[:, rates], ref[:, rates], rtol=1e-3)

@@ -33,6 +33,7 @@ class Block(importlib.abc.MetaPathFinder):
 sys.meta_path.insert(0, Block())
 import tmgcn_torch
 names = [m.name for m in pkgutil.walk_packages(tmgcn_torch.__path__, "tmgcn_torch.")]
+assert "tmgcn_torch.tasks.sampling" in names  # the negative sampler keeps its own stream
 for name in names:
     importlib.import_module(name)
 import chip_smoke
@@ -47,7 +48,7 @@ def test_port_imports_without_jax():
         timeout=120,
     )
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 25  # every module was walked
+    assert int(out.stdout.strip()) >= 26  # every module was walked
 
 
 @pytest.fixture
@@ -63,6 +64,14 @@ def test_run_experiment_needs_a_card_by_default(no_cuda):
 def test_cli_run_needs_a_card_by_default(no_cuda):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         cli.main(["run", "chess_tmgcn_cls", "--data-dir", str(ROOT / "data" / "chess")])
+
+
+@pytest.mark.parametrize("preset", ["chess_tmgcn_lp", "chess_wdgcn_lp"])
+def test_link_prediction_needs_a_card_by_default(no_cuda, preset):
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        build.run_experiment(get_preset(preset), data_dir=ROOT / "data" / "chess")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        cli.main(["run", preset, "--data-dir", str(ROOT / "data" / "chess")])
 
 
 def test_resolve_device(no_cuda):
@@ -82,7 +91,7 @@ def test_cli_list(capsys):
     "preset,kwargs",
     [
         ("chess_evolvegcn2_cls", {}),
-        ("chess_tmgcn_lp", {}),
+        ("chess_tmgcn_lp", {"checkpoint_dir": "ck"}),
         ("chess_tmgcn_cls", {"checkpoint_dir": "ck"}),
         ("chess_tmgcn_cls", {"mesh_shape": (2, 1)}),
     ],

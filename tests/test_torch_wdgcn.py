@@ -377,7 +377,7 @@ def test_chess_run_experiment_on_the_cpu(chess):
     assert res.shape == (2, 12) and np.all(np.isfinite(res[:, [3, 7, 11]]))
 
 
-@pytest.mark.parametrize("preset", ["seir_wdgcn_reg", "chess_wdgcn_lp"])
+@pytest.mark.parametrize("preset", ["seir_wdgcn_reg", "seir_wdgcn_reg_tuned"])
 def test_unported_wdgcn_tasks_raise(preset):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tbuild.run_experiment(tpresets.get_preset(preset), data_dir=CHESS.parent, device="cpu")

@@ -7,14 +7,14 @@ names, function names and public signatures follow ``tmgcn_tpu`` so each
 counterpart is found under the same path; the JAX package stays the
 reference the port is held against.
 
-Layout (the ported part so far: 1-layer TM-GCN and WD-GCN edge
-classification):
+Layout (the ported part so far: TM-GCN (1 and 2 layers) and WD-GCN, edge
+classification and link prediction):
     core/        temporal sparse tensor container, M-matrix constructors
     ops/         SpMM, M-transform, degree features, edge readout
     kernels/     hand-written CUDA kernels (csrc/) and their wrappers
     models/      TM-GCN, WD-GCN
     preprocess/  raw edge lists -> normalized temporal adjacency tensors
-    tasks/       windows, adapters, metrics
+    tasks/       windows, negative sampling, adapters, metrics
     train/       training loop, losses, metric logging
     configs/     experiment presets and run assembly
     utils/       epoch profiling and the large-graph scale benchmark

@@ -6,9 +6,13 @@
     python -m tmgcn_torch.cli run chess_wdgcn_cls --data-dir data/chess --epochs 200
     python -m tmgcn_torch.cli run chess_tmgcn2_cls --data-dir data/chess \
         --spmm-impl pallas_bf16 --epochs 200
+    python -m tmgcn_torch.cli run chess_tmgcn_lp --data-dir data/chess --epochs 200
+    python -m tmgcn_torch.cli run chess_wdgcn_lp --data-dir data/chess --epochs 200
 
 ``run`` uses the card (``--device cuda``, the default) and fails if there
-is none; ``--device cpu`` runs the plain PyTorch path on the CPU. The JAX
+is none; ``--device cpu`` runs the plain PyTorch path on the CPU. The
+results pickles hold each run's (epochs, 12) F1 rows or, for link
+prediction, its (epochs, 9) MAP-MRR rows. The JAX
 package's ``preprocess``, ``synth``, ``fetch`` and ``predict`` commands are
 not ported yet (ROADMAP queue 1, item 13).
 """

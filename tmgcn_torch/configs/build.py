@@ -1,6 +1,6 @@
 """Experiment assembly: config -> data -> adapter -> training run (port of
-tmgcn_tpu.configs.build, registry datasets and edge classification with
-TM-GCN (1 or 2 layers) or WD-GCN).
+tmgcn_tpu.configs.build: registry datasets, edge classification and link
+prediction with TM-GCN (1 or 2 layers) or WD-GCN).
 
 Turns an :class:`ExperimentConfig` into a run, reproducing the reference
 experiment-script semantics: tmgcn consumes the M-transformed windows Ct with shifted
@@ -29,8 +29,14 @@ from tmgcn_torch.preprocess import datasets as dsets
 from tmgcn_torch.preprocess.matio import load_artifact, save_artifact
 from tmgcn_torch.preprocess.pipeline import preprocess
 from tmgcn_torch.tasks.adapters import make_edge_adapter
-from tmgcn_torch.tasks.windows import WindowSpec, split_edges_classification, window_features
-from tmgcn_torch.train.loop import TrainConfig, run_edge_classification
+from tmgcn_torch.tasks.sampling import augment_edges
+from tmgcn_torch.tasks.windows import (
+    WindowSpec,
+    split_data_link_prediction,
+    split_edges_classification,
+    window_features,
+)
+from tmgcn_torch.train.loop import TrainConfig, run_edge_classification, run_link_prediction
 
 WINDOWS = ("train", "val", "test")
 
@@ -62,6 +68,8 @@ class ExperimentData:
     M: np.ndarray | None
     edge_index: np.ndarray | None  # (3, E) labeled edges
     edge_values: np.ndarray | None
+    lp_edges: np.ndarray | None = None  # augmented edges (LP) or None
+    lp_labels: np.ndarray | None = None
 
 
 def _disjoint_windows(C: TemporalCOO, spec: WindowSpec) -> dict[str, TemporalCOO]:
@@ -88,8 +96,6 @@ def build_data(
         raise NotImplementedError(
             f"synthetic dataset {cfg.dataset!r} is not ported yet (ROADMAP queue 1, item 11)"
         )
-    if cfg.task == "link_pred":
-        raise NotImplementedError("link prediction is not ported yet (ROADMAP queue 1, item 6)")
     spec_entry = dsets.REGISTRY[cfg.dataset]
     p = spec_entry.preprocess
     spec = WindowSpec(p.s_train, p.s_val, p.s_test, same_block_size=cfg.same_block_size)
@@ -152,16 +158,22 @@ def build_data(
         adj = _disjoint_windows(C_full, spec)
 
     edge_index, edge_values = A_labels.edge_list(with_values=True)
+    lp_edges = lp_labels = None
+    if cfg.task == "link_pred":
+        lp_edges, lp_labels = augment_edges(
+            edge_index, A_labels.n_nodes, cfg.beta1, cfg.beta2, cfg.cutoff, seed=cfg.seed
+        )
     return ExperimentData(
-        spec=spec, adj=adj, feats=feats, M=M, edge_index=edge_index, edge_values=edge_values
+        spec=spec, adj=adj, feats=feats, M=M, edge_index=edge_index, edge_values=edge_values,
+        lp_edges=lp_edges, lp_labels=lp_labels,
     )
 
 
 def _check_ported(cfg: ExperimentConfig) -> None:
-    ported = cfg.task == "edge_cls" and cfg.method in ("tmgcn", "wdgcn")
+    ported = cfg.task in ("edge_cls", "link_pred") and cfg.method in ("tmgcn", "wdgcn")
     if not ported:
         raise NotImplementedError(
-            f"only TM-GCN and WD-GCN edge classification are ported yet, not "
+            f"only TM-GCN and WD-GCN edge classification and link prediction are ported yet, not "
             f"{cfg.method} ({cfg.n_layers} layers) {cfg.task} (ROADMAP queue 1)"
         )
 
@@ -237,10 +249,12 @@ def run_experiment(
 ) -> dict:
     """Run the full (trials x alpha) sweep of one experiment config.
 
-    Returns {"results": {(trial, alpha): (epochs, 12) array}, "spec": ...,
+    Returns {"results": {(trial, alpha): array}, "spec": ...,
     "seconds": {"data", "adapter", "train"}} — host-clock seconds of the
     data build, the adapter build (packing, device upload, cached
-    propagation) and the training runs.
+    propagation) and the training runs. The arrays are (epochs, 12) for
+    edge classification and link prediction with eval_type "F1", (epochs,
+    9) for link prediction with "MAP-MRR".
     """
     device = resolve_device(device)
     if checkpoint_dir is not None:
@@ -264,14 +278,22 @@ def run_experiment(
     )
 
     t0 = time.perf_counter()
-    splits = split_edges_classification(
-        data.edge_index, data.edge_values, data.spec, n_classes=cfg.n_classes
-    )
     in_feat = data.feats["train"].shape[-1]
-    model = build_model(cfg, data.spec.s_train, in_feat)
+    link_pred = cfg.task == "link_pred"
+    if link_pred:
+        # The model consumes slices [0, S-1) and predicts the edges of [1, S).
+        splits = split_data_link_prediction(data.lp_edges, data.lp_labels, data.spec)
+        model_edges = {w: splits[w].model_edges for w in WINDOWS}
+        model = build_model(cfg, data.spec.s_train - 1, in_feat)
+    else:
+        splits = split_edges_classification(
+            data.edge_index, data.edge_values, data.spec, n_classes=cfg.n_classes
+        )
+        model_edges = {w: splits[w].edges for w in WINDOWS}
+        model = build_model(cfg, data.spec.s_train, in_feat)
     adapter = make_edge_adapter(
-        model, data.adj, data.feats, {w: splits[w].edges for w in WINDOWS},
-        M=data.M if cfg.method == "tmgcn" else None, device=device,
+        model, data.adj, data.feats, model_edges,
+        M=data.M if cfg.method == "tmgcn" else None, drop_last_slice=link_pred, device=device,
     )
     if device.type == "cuda":
         torch.cuda.synchronize(device)
@@ -282,11 +304,17 @@ def run_experiment(
     results: dict = {}
     for tr in range(cfg.n_trials):
         for alpha in alphas:
-            if cfg.n_classes == 3:
-                cw = np.array([1 / 3, 1 / 3, 1 / 3])
+            if link_pred:
+                res, _ = run_link_prediction(
+                    adapter, splits, np.array([alpha, 1.0 - alpha]), tcfg, generator=generator,
+                    loss_type=cfg.loss_type, eval_type=cfg.eval_type,
+                )
             else:
-                cw = np.array([alpha, 1.0 - alpha])
-            res, _ = run_edge_classification(adapter, splits, cw, tcfg, generator=generator)
+                if cfg.n_classes == 3:
+                    cw = np.array([1 / 3, 1 / 3, 1 / 3])
+                else:
+                    cw = np.array([alpha, 1.0 - alpha])
+                res, _ = run_edge_classification(adapter, splits, cw, tcfg, generator=generator)
             results[(tr, alpha)] = res
     t_train = time.perf_counter() - t0
     return {

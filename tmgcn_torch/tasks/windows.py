@@ -16,7 +16,7 @@ model consumes slices [0, S-1) and predicts the edges of slices [1, S)
 (edges re-indexed down by one -> the ``model_edges`` fields).
 
 All of this is host-side numpy data preparation (port of
-tmgcn_tpu.tasks.windows: the classification half).
+tmgcn_tpu.tasks.windows).
 """
 
 from __future__ import annotations
@@ -110,3 +110,68 @@ def split_edges_classification(
             eval_mask = edges[0] >= new_start
         out[which] = EdgeSplit(edges=edges, target=target, eval_mask=eval_mask)
     return out
+
+
+@dataclasses.dataclass(frozen=True)
+class LinkPredSplit:
+    """One window's edges for link prediction."""
+
+    edges: np.ndarray  # (3, E) window edges (rebased slices), real + fake
+    target: np.ndarray  # (E,) 0 = real, 1 = fake
+    model_edges: np.ndarray  # (3, E') edges with slice > 0, slice -= 1
+    n_eval_tail: int | None  # K: number of trailing edges scored in eval
+
+
+def split_data_link_prediction(
+    edges_aug: np.ndarray,
+    labels: np.ndarray,
+    spec: WindowSpec,
+) -> dict[str, LinkPredSplit]:
+    """Window the augmented edge set for link prediction."""
+    edges_aug = np.asarray(edges_aug)
+    labels = np.asarray(labels)
+    out = {}
+    for which in ("train", "val", "test"):
+        a, b = spec.bounds(which)
+        # The reference's test mask is an open tail (edges_aug[0] >= a);
+        # closed [a, b) is identical whenever the tensor has exactly
+        # s_train+s_val+s_test slices (true of every reference config)
+        # and stays in-bounds otherwise.
+        m = (edges_aug[0] >= a) & (edges_aug[0] < b)
+        edges = edges_aug[:, m].copy()
+        edges[0] -= a
+        target = labels[m]
+
+        keep = edges[0] != 0
+        model_edges = edges[:, keep].copy()
+        model_edges[0] -= 1
+
+        n_tail = None
+        if spec.same_block_size and which != "train":
+            shift = spec.s_val if which == "val" else spec.s_test
+            n_tail = int(np.sum(edges[0] - (spec.s_train - shift - 1) > 0))
+        out[which] = LinkPredSplit(
+            edges=edges, target=target, model_edges=model_edges, n_eval_tail=n_tail
+        )
+    return out
+
+
+def pad_edges(
+    edges: np.ndarray,
+    target: np.ndarray,
+    multiple: int = 128,
+) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Pad an edge list to a multiple of ``multiple`` (a fixed shape per step).
+
+    Padded entries point at (slice 0, node 0, node 0) with target 0 and
+    mask False; losses/metrics must apply the mask.
+    """
+    E = edges.shape[1]
+    P = ((E + multiple - 1) // multiple) * multiple
+    edges_p = np.zeros((3, P), dtype=edges.dtype)
+    target_p = np.zeros((P,), dtype=target.dtype)
+    mask = np.zeros((P,), dtype=bool)
+    edges_p[:, :E] = edges
+    target_p[:E] = target
+    mask[:E] = True
+    return edges_p, target_p, mask

@@ -1,10 +1,12 @@
-"""Task training loop: full-batch SGD with periodic evaluation (port of
-tmgcn_tpu.train.loop, edge classification).
+"""Task training loops: full-batch SGD with periodic evaluation (port of
+tmgcn_tpu.train.loop: edge classification and link prediction).
 
 Reproduces the reference experiment-script protocol (capability reference:
-TensorGCN-master/experiment_bitcoin_our.py:100-173): full-batch SGD
-(lr 0.01, momentum 0.9), evaluation of val/test every ``eval_every``
-epochs, and per-epoch metric rows in the reference's (epochs, 12) layout.
+TensorGCN-master/experiment_bitcoin_our.py:100-173 for edge
+classification, experiment_bitcoin_our_link_prediction.py:82-139 for link
+prediction): full-batch SGD (lr 0.01, momentum 0.9), evaluation of
+val/test every ``eval_every`` epochs, and per-epoch metric rows in the
+reference's layouts ((epochs, 12) for F1, (epochs, 9) for MAP-MRR).
 
 Cadence as in the JAX package: one evaluation epoch (a step whose fresh
 training logits are scored, then val/test), then ``eval_every - 1`` plain
@@ -23,8 +25,8 @@ import torch
 
 from tmgcn_torch.tasks import metrics as M
 from tmgcn_torch.tasks.adapters import ModelAdapter
-from tmgcn_torch.tasks.windows import EdgeSplit
-from tmgcn_torch.train.losses import weighted_cross_entropy
+from tmgcn_torch.tasks.windows import EdgeSplit, LinkPredSplit
+from tmgcn_torch.train.losses import sigmoid_pair_logits, weighted_cross_entropy
 
 
 @dataclasses.dataclass(frozen=True)
@@ -123,22 +125,20 @@ def _confusion(out: torch.Tensor, tgt: torch.Tensor) -> tuple[torch.Tensor, torc
     return tp, fp, fn
 
 
-def run_edge_classification(
+def _prepare(
     adapter: ModelAdapter,
-    splits: dict[str, EdgeSplit],
-    class_weights: np.ndarray,
     cfg: TrainConfig,
-    generator: torch.Generator | None = None,
-    variables: dict | None = None,
-    checkpointer=None,
-) -> tuple[np.ndarray, dict]:
-    """Train an edge classifier; returns ((epochs, 12) metrics, variables).
+    generator: torch.Generator | None,
+    variables: dict | None,
+    checkpointer,
+) -> tuple[dict, dict, _Optimizer]:
+    """TF32 off; (params, buffers, optimizer) on the adapter's device.
 
     ``variables`` (e.g. parameters carried over from the JAX package with
     ``configs.build.params_from_jax``) are copied to the adapter's device;
     otherwise they are drawn from ``generator`` (seed 0 if None). Params
     and buffers may nest (WD-GCN's ``lstm``): every leaf of ``params`` is
-    trained, and the returned variables have the same tree.
+    trained.
     """
     if checkpointer is not None:
         raise NotImplementedError("checkpoints are not ported yet (ROADMAP queue 1, item 13)")
@@ -153,20 +153,74 @@ def run_edge_classification(
         lambda v: v.detach().to(device).clone().requires_grad_(True), variables["params"]
     )
     buffers = _tree_map(lambda v: v.to(device), variables["buffers"])
-    cw = torch.as_tensor(class_weights, dtype=torch.float64, device=device)
-    tgt_train = torch.as_tensor(splits["train"].target, device=device)
-    bundle_train = adapter.bundles["train"]
-    opt = _optimizer(cfg, _tree_leaves(params))
+    return params, buffers, _optimizer(cfg, _tree_leaves(params))
 
-    def sgd_step() -> torch.Tensor:
-        """One update; returns [loss, tp, fp, fn] of its pre-update logits."""
+
+def _make_steps(
+    adapter: ModelAdapter,
+    params: dict,
+    buffers: dict,
+    opt: _Optimizer,
+    class_weights: np.ndarray,
+    target: np.ndarray,
+    with_confusion: bool,
+    logit_transform=None,
+):
+    """(sgd_step, eval_forward) over the adapter's bundles, as the JAX
+    package's ``_make_steps`` builds them for both tasks; ``target`` is the
+    train bundle's labels, one per output row.
+
+    ``sgd_step()`` makes one update on the train bundle and returns
+    (stats, out, carry): ``stats`` is [loss] (and tp, fp, fn with
+    ``with_confusion``) of the pre-update logits, one float64 tensor left on
+    the device; ``out`` those logits after ``logit_transform``, detached.
+    ``eval_forward(window, carry)`` is the window's forward without grad.
+    """
+    variables = {"params": params, "buffers": buffers}
+    bundle_train = adapter.bundles["train"]
+    cw = torch.as_tensor(class_weights, dtype=torch.float64, device=adapter.device)
+    tgt = torch.as_tensor(target, device=adapter.device)
+
+    def sgd_step() -> tuple[torch.Tensor, torch.Tensor, object]:
         opt.zero_grad()
-        out, _ = adapter.apply({"params": params, "buffers": buffers}, bundle_train, ())
-        loss = weighted_cross_entropy(out, tgt_train, cw)
+        out, carry = adapter.apply(variables, bundle_train, ())
+        if logit_transform is not None:
+            out = logit_transform(out)
+        loss = weighted_cross_entropy(out, tgt, cw)
         loss.backward()
         opt.step()
-        counts = _confusion(out.detach(), tgt_train)
-        return torch.stack([loss.detach().double(), *(c.double() for c in counts)])
+        out = out.detach()
+        stats = [loss.detach().double()]
+        if with_confusion:
+            stats.extend(c.double() for c in _confusion(out, tgt))
+        return torch.stack(stats), out, carry
+
+    @torch.no_grad()
+    def eval_forward(window: str, carry):
+        return adapter.apply(variables, adapter.bundles[window], carry)
+
+    return sgd_step, eval_forward
+
+
+def run_edge_classification(
+    adapter: ModelAdapter,
+    splits: dict[str, EdgeSplit],
+    class_weights: np.ndarray,
+    cfg: TrainConfig,
+    generator: torch.Generator | None = None,
+    variables: dict | None = None,
+    checkpointer=None,
+) -> tuple[np.ndarray, dict]:
+    """Train an edge classifier; returns ((epochs, 12) metrics, variables).
+
+    ``variables``, ``generator``: as ``_prepare`` takes them; the returned
+    variables have the same tree.
+    """
+    params, buffers, opt = _prepare(adapter, cfg, generator, variables, checkpointer)
+    sgd_step, eval_forward = _make_steps(
+        adapter, params, buffers, opt, class_weights, splits["train"].target,
+        with_confusion=True,
+    )
 
     results = np.zeros((cfg.n_epochs, 12))
     val_stats = (0.0,) * 4
@@ -174,22 +228,19 @@ def run_edge_classification(
     ep = 0
     while ep < cfg.n_epochs:
         # Evaluation epoch: one step, then score val/test.
-        loss, tp, fp, fn = sgd_step().cpu().numpy()
+        stats, _, carry = sgd_step()
+        loss, tp, fp, fn = stats.cpu().numpy()
         p_tr, r_tr, f1_tr = _f1(tp, fp, fn)
-        stats = {}
-        carry = ()
-        with torch.no_grad():
-            for wname in ("val", "test"):
-                out, carry = adapter.apply(
-                    {"params": params, "buffers": buffers}, adapter.bundles[wname], carry
-                )
-                s = splits[wname]
-                out_np = out.cpu().numpy()[s.eval_mask]
-                tgt_np = s.target[s.eval_mask]
-                p, r, f1 = M.precision_recall_f1(np.argmax(out_np, axis=1), tgt_np)
-                l = M.weighted_ce_loss_np(out_np, tgt_np, np.asarray(class_weights))
-                stats[wname] = (p, r, f1, l)
-        val_stats, test_stats = stats["val"], stats["test"]
+        scored = {}
+        for wname in ("val", "test"):
+            out, carry = eval_forward(wname, carry)
+            s = splits[wname]
+            out_np = out.cpu().numpy()[s.eval_mask]
+            tgt_np = s.target[s.eval_mask]
+            p, r, f1 = M.precision_recall_f1(np.argmax(out_np, axis=1), tgt_np)
+            l = M.weighted_ce_loss_np(out_np, tgt_np, np.asarray(class_weights))
+            scored[wname] = (p, r, f1, l)
+        val_stats, test_stats = scored["val"], scored["test"]
         results[ep] = [p_tr, r_tr, f1_tr, loss, *val_stats, *test_stats]
         if cfg.verbose:
             print(
@@ -201,10 +252,114 @@ def run_edge_classification(
         # Non-evaluation epochs: stats stay on the device until the chunk ends.
         k = min(cfg.eval_every - 1, cfg.n_epochs - ep)
         if k > 0:
-            chunk = torch.stack([sgd_step() for _ in range(k)]).cpu().numpy()
+            chunk = torch.stack([sgd_step()[0] for _ in range(k)]).cpu().numpy()
             for i, (loss_i, tp_i, fp_i, fn_i) in enumerate(chunk):
                 p_tr, r_tr, f1_tr = _f1(tp_i, fp_i, fn_i)
                 results[ep + i] = [p_tr, r_tr, f1_tr, loss_i, *val_stats, *test_stats]
+            ep += k
+
+    params = _tree_map(torch.Tensor.detach, params)
+    return results, {"params": params, "buffers": buffers}
+
+
+def run_link_prediction(
+    adapter: ModelAdapter,
+    splits: dict[str, LinkPredSplit],
+    class_weights: np.ndarray,
+    cfg: TrainConfig,
+    generator: torch.Generator | None = None,
+    variables: dict | None = None,
+    checkpointer=None,
+    loss_type: str = "softmax",
+    eval_type: str = "MAP-MRR",
+) -> tuple[np.ndarray, dict]:
+    """Train a link predictor; returns ((epochs, K) metrics, variables).
+
+    eval_type="MAP-MRR" (default): (epochs, 9) rows [MAP_tr, MRR_tr,
+    loss_tr, MAP_v, MRR_v, loss_v, MAP_te, MRR_te, loss_te];
+    eval_type="F1": the (epochs, 12) classification layout.
+    loss_type="sigmoid" expects 1-column model outputs and trains on
+    [p, 1-p] pairs (reference loss_type option,
+    experiment_bitcoin_our_link_prediction.py:195-197).
+
+    The adapter's bundles hold each window's ``model_edges``; the training
+    target drops the window's slice-0 edges to match. Same-block windows
+    score their last ``n_eval_tail`` edges, disjoint windows every model
+    edge. ``variables``, ``generator``: as ``_prepare`` takes them.
+    """
+    transform = None
+    if loss_type == "sigmoid":
+        transform = sigmoid_pair_logits
+    elif loss_type != "softmax":
+        raise ValueError(f"unknown loss_type {loss_type!r}")
+    if eval_type not in ("MAP-MRR", "F1"):
+        raise ValueError(f"unknown eval_type {eval_type!r}")
+    use_f1 = eval_type == "F1"
+    params, buffers, opt = _prepare(adapter, cfg, generator, variables, checkpointer)
+    train = splits["train"]
+    keep_train = train.edges[0] != 0
+    tgt_train = train.target[keep_train]  # the model edges' labels
+    sgd_step, eval_forward = _make_steps(
+        adapter, params, buffers, opt, class_weights, tgt_train, with_confusion=False,
+        logit_transform=transform,
+    )
+
+    def _pairs(out_np: np.ndarray) -> np.ndarray:
+        if transform is None:
+            return out_np
+        p = 1.0 / (1.0 + np.exp(-out_np.astype(np.float64)))
+        return np.concatenate([p, 1.0 - p], axis=1)
+
+    width = 12 if use_f1 else 9
+    n_stats = 4 if use_f1 else 3
+    results = np.zeros((cfg.n_epochs, width))
+    val_stats = (0.0,) * n_stats
+    test_stats = (0.0,) * n_stats
+    ep = 0
+    while ep < cfg.n_epochs:
+        stats, out_train, carry = sgd_step()
+        loss = float(stats[0])
+        # The step's logits are already [p, 1-p] under loss_type="sigmoid";
+        # _pairs maps them again, so train is scored on 4 columns, as the
+        # JAX package scores it (tmgcn_tpu/train/loop.py:316).
+        out_tr = _pairs(out_train.cpu().numpy())
+        if use_f1:
+            tr_stats = M.precision_recall_f1(np.argmax(out_tr, 1), tgt_train)
+        else:
+            tr_stats = M.map_mrr(out_tr, tgt_train, train.edges[:, keep_train])
+        scored = {}
+        for wname in ("val", "test"):
+            out, carry = eval_forward(wname, carry)
+            s = splits[wname]
+            out_np = _pairs(out.cpu().numpy())
+            if s.n_eval_tail is not None:
+                # Same-block windows: score only the new tail slices.
+                K = s.n_eval_tail
+                out_np, tgt_np, metric_edges = out_np[-K:], s.target[-K:], s.edges[:, -K:]
+            else:
+                # Disjoint windows: score every model edge.
+                keep = s.edges[0] != 0
+                tgt_np, metric_edges = s.target[keep], s.edges[:, keep]
+            l = M.weighted_ce_loss_np(out_np, tgt_np, np.asarray(class_weights))
+            if use_f1:
+                scored[wname] = (*M.precision_recall_f1(np.argmax(out_np, 1), tgt_np), l)
+            else:
+                scored[wname] = (*M.map_mrr(out_np, tgt_np, metric_edges), l)
+        val_stats, test_stats = scored["val"], scored["test"]
+        results[ep] = [*tr_stats, loss, *val_stats, *test_stats]
+        if cfg.verbose:
+            print(
+                f"ep {ep}: train {tr_stats} loss {loss:.4f} | "
+                f"val {val_stats[0]:.4f} | test {test_stats[0]:.4f}"
+            )
+        ep += 1
+
+        # Non-evaluation epochs: losses stay on the device until the chunk ends.
+        k = min(cfg.eval_every - 1, cfg.n_epochs - ep)
+        if k > 0:
+            losses = torch.stack([sgd_step()[0][0] for _ in range(k)]).cpu().numpy()
+            for i in range(k):
+                results[ep + i] = [*tr_stats, losses[i], *val_stats, *test_stats]
             ep += k
 
     params = _tree_map(torch.Tensor.detach, params)

@@ -1,9 +1,11 @@
 """Loss functions matching the reference training objectives (port of
-tmgcn_tpu.train.losses, the classification loss).
+tmgcn_tpu.train.losses: the classification and link-prediction losses).
 
 Capability reference: weighted ``nn.CrossEntropyLoss`` in every
-classification script (e.g. TensorGCN-master/experiment_bitcoin_our.py:113)
-— weighted mean: Σ w[y_i]·ce_i / Σ w[y_i].
+classification/link-prediction script (e.g. TensorGCN-master/
+experiment_bitcoin_our.py:113) — weighted mean: Σ w[y_i]·ce_i / Σ w[y_i];
+and the sigmoid loss_type of the link-prediction scripts (unused by the
+presets but supported).
 """
 
 from __future__ import annotations
@@ -30,3 +32,9 @@ def weighted_cross_entropy(
     if mask is not None:
         w = w * mask.to(logits.dtype)
     return torch.sum(w * nll) / torch.sum(w)
+
+
+def sigmoid_pair_logits(out: torch.Tensor) -> torch.Tensor:
+    """loss_type='sigmoid': map (E, 1) outputs to (E, 2) as [p, 1-p]."""
+    p = torch.sigmoid(out)
+    return torch.cat([p, 1.0 - p], dim=1)
