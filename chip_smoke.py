@@ -44,6 +44,24 @@ non-zero, and nothing falls back to the CPU:
                train window's tiled packing at F = 2 (forward and operator
                backward), bitwise repeat; times beside the bound and
                torch.sparse.mm;
+  6b. fast   — K1's and K3's fast tiers (float32 input at the TPU's DEFAULT
+               matrix precision) against their plain versions: random
+               packings (F = 2, 6, 128; K1 with and without init, empty
+               windows; K3 with small ut_cap cuts), K3 fast bitwise K3 bf16
+               on the blocks cast to bf16, both fast operators' forward and
+               autograd backward, bitwise repeat; then two main paths, each
+               with every launch count set to 0 just before it and read just
+               after: ``tmgcn_torch.utils.spmm_bench.main(["--case", "all"])``
+               in process (every record of the JAX script, no error record;
+               K1 f32 294 and K1 fast 210 launches), and at spmm_bench's r1
+               workload (1M nnz, F = 128) the tiled fast operator's forward
+               and backward (2 K3 fast launches); at both workloads (r1,
+               F = 128; chess2, F = 8) K1 f32 and fast against their plain
+               versions on every (chunk, window) packing of spmm_bench, and
+               the c256_w256 operator's autograd backward (K1 on the
+               transposed packing, the _fwdbwd record's); K1 f32 and fast
+               timed at both workloads and K3 fast and K3 f32 at r1's tiled
+               packing, beside bound and torch.sparse.mm;
   7. paths   — the main paths, each with every launch count set to 0 just
                before it and read just after:
                a. ``run_experiment`` of chess_tmgcn_cls, spmm_impl="pallas",
@@ -109,9 +127,11 @@ import subprocess
 import sys
 import time
 
-# H100 SXM data-sheet peaks (float32 outside the tensor cores; HBM3).
-PEAK_BYTES_PER_S = 3.35e12
-PEAK_F32_FLOP_PER_S = 67e12
+try:  # the card's data-sheet peaks: float32 outside the tensor cores, HBM3
+    from tmgcn_torch.utils.profiling import PEAK_FLOPS_F32 as PEAK_F32_FLOP_PER_S
+    from tmgcn_torch.utils.profiling import PEAK_HBM_BYTES as PEAK_BYTES_PER_S
+except ImportError as e:
+    sys.exit(f"chip_smoke: FAIL: run from the root of a tmgcn checkout ({e})")
 # Float32 sums taken in another order; scaled by max(1, |ref|). The bf16
 # tiers too: their plain versions round each product to bf16 as the
 # kernels do, so only the order of the float32 sums differs.
@@ -131,7 +151,10 @@ COUNTERS = (
     ("windowed_segment_matmul_t", "launches"),
     ("windowed_tiled_segment_matmul", "launches"),
     ("windowed_tiled_segment_matmul", "launches_bf16"),
+    ("windowed_segment_matmul", "launches_fast"),
+    ("windowed_tiled_segment_matmul", "launches_fast"),
 )
+COUNTED = "(K1, K1 bf16, K2, K3, K3 bf16, K1 fast, K3 fast)"
 BF16_RTOL = 1e-3  # losses of the bf16 paths against the CPU's plain path
 DEVICE = "cuda"
 # The WD-GCN scale run: tools/bench_scale.py's wdgcn family, host build cut.
@@ -860,13 +883,15 @@ def _tiled_stream(np, seed: int, n_out: int):
 
 def _tiled_bound(torch, p, F: int, itemsize: int) -> tuple[float, str, int, int]:
     """The least time for K3's function on these inputs: each real entry's
-    row id, tile index and value (12 bytes), each chunk's distinct tiles'
-    8 rows of F features, the window offsets, and the float32 output (every
-    window), once."""
+    row id, tile index and value (12 bytes), the F features of each distinct
+    row of the tile blocks that a real entry reads (the other rows of a tile
+    do not change the sums), the window offsets, and the float32 output
+    (every window), once."""
     real = p.vals != 0
     n_real = int(real.sum())
-    n_tiles = int(torch.where(real, p.uidx // 8 + 1, 0).amax(dim=1).sum())
-    nbytes = 12 * n_real + itemsize * 8 * F * n_tiles + 4 * (p.window_ptr.numel() + p.n_rows_out * F)
+    block_row = torch.arange(p.n_chunks, device=p.uidx.device)[:, None] * (8 * p.ut_cap) + p.uidx
+    n_rows_read = torch.unique(block_row[real]).numel()
+    nbytes = 12 * n_real + itemsize * F * n_rows_read + 4 * (p.window_ptr.numel() + p.n_rows_out * F)
     return (*_bound_ms(nbytes, 2 * n_real * F), nbytes, 2 * n_real * F)
 
 
@@ -959,6 +984,238 @@ def phase_k3(torch, np) -> tuple[dict, dict]:
     return entries["f32"], entries["bf16"]
 
 
+def _plain_operator(tk, p, flat, fast: bool):
+    """The plain version of a K1/K3 operator's sums over packing p, on flat's device."""
+    g = tk.gather_chunks(flat, p)
+    if isinstance(p, tk.PackedTiled):
+        return tk.windowed_tiled_segment_matmul_reference(p, g, flat.dtype, fast)
+    return tk.windowed_segment_matmul_reference(p, g, flat.dtype, fast=fast)
+
+
+def _bench_tags() -> list[str]:
+    """The records of tmgcn_tpu/utils/spmm_bench.py for one case (neither
+    --quick nor --fwd-only), in its order."""
+    tags = ["gather_only", "jnp_flat"]
+    tags += [f"rowsplit_k{k}{s}" for k in (8, 16, 32, 64) for s in ("", "_fwdbwd")]
+    tags += ["pallas_c256_w256", "pallas_c256_w256_fwdbwd", "pallas_c256_w256_fast"]
+    tags += [f"pallas_c{c}_w{w}{s}" for c, w in ((512, 256), (1024, 256), (512, 512), (1024, 512))
+             for s in ("", "_fast")]
+    return tags
+
+
+def phase_fast(torch, np, tk) -> tuple[dict, dict, dict, dict]:
+    """K1's and K3's fast tiers: against their plain versions on the card,
+    K3 fast as K3 bf16 on bf16-cast blocks, the operators' backward; the
+    spmm_bench path (counted), then both K1 tiers on each of its packings
+    against their plain versions; both K1 tiers, K3 fast and K3 f32 timed
+    at spmm_bench's two workloads beside their bounds and torch.sparse.mm."""
+    from tmgcn_torch.core.sparse import TemporalCOO
+    from tmgcn_torch.utils import profile_slice, spmm_bench
+
+    dev = torch.device(DEVICE)
+    k1, k1p = tk.windowed_segment_matmul, tk.windowed_segment_matmul_reference
+    k3, k3p = tk.windowed_tiled_segment_matmul, tk.windowed_tiled_segment_matmul_reference
+    f32, bf16 = torch.float32, torch.bfloat16
+    err = {"k1": 0.0, "k3": 0.0}
+    for F in (2, 6, 128):
+        for use_init in (False, True):
+            rows, cols, vals = _random_stream(np, 300 + F, 20_000)
+            p = tk.pack_windowed_flat(
+                rows, cols, vals, 20_000, sort_cols=True, all_windows=not use_init
+            ).to(dev)
+            g = torch.randn(p.n_chunks, p.chunk, F, device=dev)
+
+            def init_fn(p=p, F=F, use_init=use_init):
+                return torch.zeros(p.n_rows_out, F, device=dev) if use_init else None
+
+            what = f"K1 fast F={F} init={use_init}"
+            err["k1"] = max(err["k1"], _check_same(
+                torch, lambda p=p, g=g, i=init_fn: k1(p, g, f32, i(), fast=True),
+                lambda p=p, g=g, i=init_fn: k1p(p, g, f32, i(), fast=True), what))
+            check(not torch.equal(k1(p, g, f32, init_fn(), fast=True), k1(p, g, f32, init_fn())),
+                  f"{what} gave the float32 tier's sums")
+    for F, ut_cap in ((2, 4), (6, 64), (128, 8)):
+        rows, cols, vals = _tiled_stream(np, 300 + F, 20_000)
+        p = tk.pack_windowed_tiled_flat(rows, cols, vals, 20_000, 512, 256, ut_cap,
+                                        all_windows=F == 2).to(dev)
+        g = torch.randn(p.n_chunks, 8 * ut_cap, F, device=dev)
+        what = f"K3 fast F={F} ut_cap={ut_cap}"
+        err["k3"] = max(err["k3"], _check_same(
+            torch, lambda p=p, g=g: k3(p, g, f32, fast=True),
+            lambda p=p, g=g: k3p(p, g, f32, fast=True), what))
+        check(torch.equal(k3(p, g, f32, fast=True), k3(p, g.to(bf16), f32)),
+              f"{what} is not K3 bf16 on the blocks cast to bf16")
+    print(f"fast tiers, random packings: ok, K3 fast bitwise K3 bf16 on bf16-cast blocks "
+          f"(max abs err K1 {err['k1']:.3e}, K3 {err['k3']:.3e})")
+
+    # The operators' autograd backward (the kernel on the transposed packing).
+    rng = np.random.default_rng(9)
+    dense = (rng.random((4, 300, 300)) < 0.05) * rng.random((4, 300, 300))
+    for kernel, kwargs in (("k1", {}), ("k3", {"tile_dedup": True, "chunk": 512})):
+        op = tk.make_operator(TemporalCOO.from_dense(dense), fast=True, **kwargs).to(dev)
+        X = torch.randn(4, 300, 6, device=dev)
+        G = torch.randn(4, 300, 6, device=dev)
+        grads = []
+        for _ in range(2):
+            Xg = X.clone().requires_grad_(True)
+            out = op(Xg)
+            (out * G).sum().backward()
+            grads.append(Xg.grad)
+        torch.cuda.synchronize()
+        check(torch.equal(*grads), f"{kernel} fast operator: two backward passes differ")
+        for what, got, ref in (
+            ("forward", out.reshape(-1, 6), _plain_operator(tk, op.packed, X.reshape(-1, 6), True)),
+            ("backward", grads[0].reshape(-1, 6),
+             _plain_operator(tk, op.packed_t, G.reshape(-1, 6), True)),
+        ):
+            e, tol = _max_err(got, ref[: got.shape[0]])
+            check(e <= tol, f"{kernel} fast operator {what}: max abs err {e} > {tol}")
+            err[kernel] = max(err[kernel], e)
+    print("fast operators (K1, K3): forward and backward ok, backward bitwise repeatable")
+
+    # The spmm_bench path, every record of the JAX script's --case all.
+    t0 = time.perf_counter()
+    records, launches = _counted(tk, lambda: spmm_bench.main(["--case", "all"]))
+    t_bench = time.perf_counter() - t0
+    names = [name for name, _ in spmm_bench.CASES.values()]
+    check([(r["case"], r["impl"]) for r in records] == [(n, t) for n in names for t in _bench_tags()],
+          f"spmm_bench records {[(r['case'], r['impl']) for r in records]}")
+    check(all("error" not in r and r["ms"] > 0 for r in records), "spmm_bench: an error record")
+    # Each record calls its function once warm and 20 times timed; per case 5
+    # float32 forwards and one forward + backward, and 5 fast forwards.
+    calls = 21 * len(names)
+    expected = (7 * calls, 0, 0, 0, 0, 5 * calls, 0)
+    check(launches == expected, f"spmm_bench --case all: {COUNTED} launched {launches} times, "
+          f"expected {expected}")
+    print(f"spmm_bench --case all (in process): {len(records)} records in {t_bench:.3f} s, "
+          f"{COUNTED} launches {launches}")
+
+    # At spmm_bench's two workloads, every packing of its path: K1 f32 and
+    # fast against their plain versions, and the pallas_c256_w256_fwdbwd
+    # record's backward (K1 on the transposed packing). Then K1 f32 and fast
+    # timed on the c256_w256 packing's forward chunks, and at r1 K3 fast and
+    # K3 f32 on the tiled packing.
+    timings, counts = {}, {"spmm_bench --case all": launches}
+    for case, (name, shape) in spmm_bench.CASES.items():
+        A, X = spmm_bench.make_workload(**shape)
+        F = shape["F"]
+        flat = X.reshape(-1, F).to(dev)
+        nnz = int(A.nnz.sum())
+        for chunk, window in spmm_bench.PALLAS_CONFIGS:
+            t0 = time.perf_counter()
+            op = tk.make_operator(A, chunk=chunk, window=window).to(dev)
+            p = op.packed
+            g = tk.gather_chunks(flat, p)
+            print(f"{name} c{chunk}_w{window}: K1 packing (both directions) and gather "
+                  f"{time.perf_counter() - t0:.3f} s; J={p.n_chunks} C={p.chunk} W={p.window} "
+                  f"F={F} nnz={nnz} n_rows_out={p.n_rows_out}")
+            for tier, fast in (("f32", False), ("fast", True)):
+                err["k1"] = max(err["k1"], _check_same(
+                    torch, lambda p=p, g=g, fast=fast: k1(p, g, fast=fast),
+                    lambda p=p, g=g, fast=fast: k1p(p, g, fast=fast),
+                    f"K1 {tier} {name} c{chunk}_w{window}"))
+            if (chunk, window) != spmm_bench.PALLAS_CONFIGS[0]:
+                del op, p, g
+                continue
+            err["k1"] = max(err["k1"], _check_operator_backward(
+                torch, tk, op, X.to(dev), f"{name} c{chunk}_w{window} operator"))
+            keep = op
+        op, p = keep, keep.packed
+        g = tk.gather_chunks(flat, p)
+        S = _slot_csr(torch, p, p.vals != 0)
+        g_flat = g.reshape(-1, F)
+        e, tol = _max_err(k1(p, g), torch.sparse.mm(S, g_flat))
+        check(e <= tol, f"K1 vs torch.sparse.mm at {name}: {e} > {tol}")
+        timings[case] = {}
+        for tier, fast in (("f32", False), ("fast", True)):
+            timings[case][tier] = _report(
+                torch, f"K1 {tier} {name}", lambda fast=fast: k1(p, g, fast=fast),
+                lambda fast=fast: k1p(p, g, fast=fast), lambda: torch.sparse.mm(S, g_flat),
+                _bound(p, F, nnz, False))
+        # Where the record's time goes: its call, o(x).sum(), 20 times traced.
+        Xd = X.to(dev)
+        traced, _ = profile_slice.trace(lambda: [op(Xd).sum() for _ in range(20)], 20, top=6)
+        timings[case]["record_trace"] = traced
+        print(f"{name} pallas_c256_w256 record's call, 20 traced: device "
+              f"{traced['device_ms_per_profiled_epoch']:.6f} ms a call, busy share "
+              f"{traced['device_busy_share']:.4f}, wall {traced['profiled_wall_ms'] / 20:.6f} ms a "
+              f"call, {traced['launch_calls_per_profiled_epoch']:.1f} launch calls a call; device "
+              f"ms by kernel over the 20 {json.dumps(traced['device_ms_by_kernel'])}")
+        del op, keep, p, g, S, g_flat, Xd
+        if case == "r1":
+            # The tiled fast operator, forward and backward: K3 fast's path.
+            t0 = time.perf_counter()
+            op = tk.make_operator(A, chunk=512, window=256, tile_dedup=True, fast=True).to(dev)
+            t_pack = time.perf_counter() - t0
+            Xg = X.to(dev).requires_grad_(True)
+            G = torch.randn(X.shape, device=dev)
+
+            def fwd_bwd(op=op, Xg=Xg, G=G):
+                (op(Xg) * G).sum().backward()
+                return Xg.grad
+
+            dX, tiled_launches = _counted(tk, fwd_bwd)
+            counts["r1 tiled fast operator (forward + backward)"] = tiled_launches
+            check(tiled_launches == (0, 0, 0, 0, 0, 0, 2),
+                  f"r1 tiled fast operator: {COUNTED} launched {tiled_launches}, expected one "
+                  f"K3 fast launch each way")
+            e, tol = _max_err(dX.reshape(-1, F), _plain_operator(tk, op.packed_t, G.reshape(-1, F),
+                                                                  True)[: flat.shape[0]])
+            check(e <= tol, f"r1 tiled fast operator backward: {e} > {tol}")
+            p = op.packed
+            real = p.vals != 0
+            n_tiles = int(torch.where(real, p.uidx // 8 + 1, 0).amax(dim=1).sum())
+            shape_k3 = (f"{name} tiled, F={F}: {p.n_chunks} chunks of {p.chunk} (ut_cap "
+                        f"{p.ut_cap}), {int(real.sum())} entries, {n_tiles / p.n_chunks:.2f} "
+                        f"distinct tiles per chunk")
+            print(f"{shape_k3}; packed (both directions) in {t_pack:.3f} s")
+            g = tk.gather_chunks(flat, p)
+            err["k3"] = max(err["k3"], _check_same(
+                torch, lambda: k3(p, g, fast=True), lambda: k3p(p, g, fast=True), f"K3 fast {name}"))
+            check(torch.equal(k3(p, g, fast=True), k3(p, g.to(bf16), f32)),
+                  f"K3 fast at {name} is not K3 bf16 on the blocks cast to bf16")
+            S = _tiled_csr(torch, p)
+            g32 = g.reshape(-1, F)
+            timings[case]["k3_fast"] = _report(
+                torch, f"K3 fast {name}", lambda: k3(p, g, fast=True), lambda: k3p(p, g, fast=True),
+                lambda: torch.sparse.mm(S, g32), _tiled_bound(torch, p, F, 4))
+            timings[case]["k3_fast"]["shape"] = shape_k3
+            # K3 f32 on the same packing and blocks, beside K3 fast.
+            err["k3_f32"] = _check_same(
+                torch, lambda: k3(p, g), lambda: k3p(p, g), f"K3 f32 {name}")
+            timings[case]["k3_f32"] = _report(
+                torch, f"K3 f32 {name}", lambda: k3(p, g), lambda: k3p(p, g),
+                lambda: torch.sparse.mm(S, g32), _tiled_bound(torch, p, F, 4))
+            del op, p, g, S, g32, Xg, G, dX
+        torch.cuda.empty_cache()
+    print(f"fast tiers, max abs err over every check: K1 {err['k1']:.3e}, K3 {err['k3']:.3e}")
+    shapes = {case: f"spmm_bench {name} c256_w256 forward, F={shape['F']}"
+              for case, (name, shape) in spmm_bench.CASES.items()}
+    k1_fast = {
+        "name": "windowed_segment_matmul_fast",
+        "route": "cuda",
+        "source": SOURCE,
+        "replaces": K1_REPLACES,
+        "max_abs_err": err["k1"],
+        **timings["r1"]["fast"],
+        "shape": shapes["r1"],
+        "spmm_bench_chess2": {**timings["chess2"]["fast"], "shape": shapes["chess2"]},
+    }
+    k3_fast = {
+        "name": "windowed_tiled_segment_matmul_fast",
+        "route": "cuda",
+        "source": K3_SOURCE,
+        "replaces": K3_REPLACES,
+        "max_abs_err": err["k3"],
+        **timings["r1"]["k3_fast"],
+        "k3_f32_same_packing": {**timings["r1"]["k3_f32"], "max_abs_err": err["k3_f32"]},
+    }
+    k1_f32 = {f"spmm_bench_{case}": {**timings[case]["f32"], "shape": shapes[case],
+                                     "record_trace": timings[case]["record_trace"]}
+              for case in spmm_bench.CASES}
+    return k1_fast, k3_fast, k1_f32, counts
+
+
 def _check_rows(np, res, what: str) -> None:
     check(res.shape[1] == 12, f"{what}: results are not (epochs, 12)")
     check(bool(np.all(np.isfinite(res[:, [3, 7, 11]]))), f"{what}: a loss is not finite")
@@ -985,7 +1242,7 @@ def _check_lp_rows(np, res, what: str) -> None:
 
 def _counted(tk, fn):
     """Run fn with every launch count set to 0; (result, the counts in
-    COUNTERS order: K1, K1 bf16, K2, K3, K3 bf16)."""
+    COUNTERS order: K1, K1 bf16, K2, K3, K3 bf16, K1 fast, K3 fast)."""
     for fn_name, counter in COUNTERS:
         setattr(getattr(tk, fn_name), counter, 0)
     out = fn()
@@ -1001,16 +1258,15 @@ def _run_slice(torch, np, tk, cfg, e_train: int, expected: tuple, epochs: int = 
     out, launches = _counted(tk, lambda: run_experiment(
         cfg, data_dir=DATA_DIR, n_epochs=epochs, verbose=False, device=DEVICE))
     check(launches == expected,
-          f"{name}: (K1, K1 bf16, K2, K3, K3 bf16) launched {launches} times on the main path, "
-          f"expected {expected}")
+          f"{name}: {COUNTED} launched {launches} times on the main path, expected {expected}")
     (res,) = out["results"].values()
     lp = cfg.task == "link_pred"
     width = 9 if lp else 12
     check(res.shape == (epochs, width), f"{name}: results shape {res.shape}")
     (_check_lp_rows if lp else _check_rows)(np, res, f"{name} cuda run")
     sec = out["seconds"]
-    print(f"slice {name} cuda, first run: {epochs} epochs, (K1, K1 bf16, K2, K3, K3 bf16) "
-          f"launches {launches}; data {sec['data']:.3f} s, adapter {sec['adapter']:.3f} s, "
+    print(f"slice {name} cuda, first run: {epochs} epochs, {COUNTED} launches {launches}; "
+          f"data {sec['data']:.3f} s, adapter {sec['adapter']:.3f} s, "
           f"train {sec['train']:.3f} s ({1e3 * sec['train'] / epochs:.6f} ms/epoch with the "
           f"process's first launches)")
     if lp:
@@ -1066,7 +1322,7 @@ def phase_tmgcn(torch, np, tk, e_train: int) -> tuple[int, int]:
     from tmgcn_torch.configs.presets import get_preset
 
     cfg = dataclasses.replace(get_preset("chess_tmgcn_cls"), spmm_impl="pallas")
-    return _run_slice(torch, np, tk, cfg, e_train, (3, 0, 0, 0, 0))
+    return _run_slice(torch, np, tk, cfg, e_train, (3, 0, 0, 0, 0, 0, 0))
 
 
 def phase_wdgcn_chess(torch, np, tk, e_train: int) -> dict[str, tuple[int, int]]:
@@ -1075,19 +1331,20 @@ def phase_wdgcn_chess(torch, np, tk, e_train: int) -> dict[str, tuple[int, int]]
 
     cfg = get_preset("chess_wdgcn_cls")
     check(cfg.spmm_impl == "jnp", "chess_wdgcn_cls is expected to name spmm_impl jnp")
-    counts = {"chess_wdgcn_cls": _run_slice(torch, np, tk, cfg, e_train, (EPOCHS, 0, 0, 0, 0))}
+    counts = {"chess_wdgcn_cls": _run_slice(torch, np, tk, cfg, e_train,
+                                            (EPOCHS, 0, 0, 0, 0, 0, 0))}
     # The CLI, with the CUDA propagation: 3 more K1 launches at set-up.
     argv = ["run", "chess_wdgcn_cls", "--data-dir", DATA_DIR, "--spmm-impl", "pallas",
             "--epochs", str(EPOCHS), "--quiet"]
     t0 = time.perf_counter()
     rc, launches = _counted(tk, lambda: cli.main(argv))
     check(rc == 0, f"cli {' '.join(argv)} exited {rc}")
-    expected = (EPOCHS + 3, 0, 0, 0, 0)
+    expected = (EPOCHS + 3, 0, 0, 0, 0, 0, 0)
     check(launches == expected,
           f"cli run chess_wdgcn_cls --spmm-impl pallas: launched {launches} times, "
           f"expected {expected}")
     print(f"cli run chess_wdgcn_cls --spmm-impl pallas: {EPOCHS} epochs in "
-          f"{time.perf_counter() - t0:.3f} s, (K1, K1 bf16, K2, K3, K3 bf16) launches {launches}")
+          f"{time.perf_counter() - t0:.3f} s, {COUNTED} launches {launches}")
     counts["cli chess_wdgcn_cls --spmm-impl pallas"] = launches
     return counts
 
@@ -1098,9 +1355,10 @@ def phase_wdgcn_scale(torch, np, tk, inputs, t_build: float) -> tuple[int, int]:
     out, launches = _counted(
         tk, lambda: scale_bench.run_family("wdgcn", inputs, SCALE_N_TIMED, DEVICE))
     steps = out["steps"]
-    check(launches == (0, 0, steps, 0, 0),
-          f"WD-GCN scale: (K1, K1 bf16, K2, K3, K3 bf16) launched {launches} times in {steps} "
-          f"steps, expected {(0, 0, steps, 0, 0)}")
+    expected = (0, 0, steps, 0, 0, 0, 0)
+    check(launches == expected,
+          f"WD-GCN scale: {COUNTED} launched {launches} times in {steps} steps, "
+          f"expected {expected}")
     losses = out["losses"]
     check(losses.shape == (steps,) and bool(np.all(np.isfinite(losses))),
           f"WD-GCN scale: losses not finite: {losses}")
@@ -1169,20 +1427,20 @@ def phase_tmgcn2(torch, np, tk) -> dict[str, tuple]:
     counts = {}
     cfg = dataclasses.replace(base, spmm_impl="pallas")
     counts["chess_tmgcn2_cls pallas"] = _run_slice(
-        torch, np, tk, cfg, e_train, (k1_launches, 0, 0, 0, 0))
+        torch, np, tk, cfg, e_train, (k1_launches, 0, 0, 0, 0, 0, 0))
     # Device time per epoch of the restricted operator as K1 and as
     # block-dense (the preset's auto), traced as profile_slice traces it.
     profiles = {impl: _device_profile(impl) for impl in ("pallas", "jnp")}
     cfg = dataclasses.replace(base, spmm_impl="pallas_bf16")
     counts["chess_tmgcn2_cls pallas_bf16"] = _run_slice(
-        torch, np, tk, cfg, e_train, (0, k1_launches, 0, 0, 0), warm=False, rtol=BF16_RTOL)
-    for impl, expected, rtol in (("pallas_tiled", (0, 0, 0, 3, 0), 1e-4),
-                                 ("pallas_tiled_bf16", (0, 0, 0, 0, 3), BF16_RTOL)):
+        torch, np, tk, cfg, e_train, (0, k1_launches, 0, 0, 0, 0, 0), warm=False, rtol=BF16_RTOL)
+    for impl, expected, rtol in (("pallas_tiled", (0, 0, 0, 3, 0, 0, 0), 1e-4),
+                                 ("pallas_tiled_bf16", (0, 0, 0, 0, 3, 0, 0), BF16_RTOL)):
         cfg = dataclasses.replace(base, spmm_impl=impl)
         counts[f"chess_tmgcn2_cls {impl}"] = _run_slice(
             torch, np, tk, cfg, e_train, expected, epochs=REF_EPOCHS, warm=False, rtol=rtol)
     counts["chess_tmgcn2_cls preset (jnp: blockdense)"] = _run_slice(
-        torch, np, tk, base, e_train, (0, 0, 0, 0, 0))
+        torch, np, tk, base, e_train, (0, 0, 0, 0, 0, 0, 0))
     return counts, profiles
 
 
@@ -1197,12 +1455,13 @@ def phase_lp(torch, np, tk) -> dict[str, tuple]:
     base = get_preset("chess_tmgcn_lp")
     check(base.spmm_impl == "jnp", "chess_tmgcn_lp is expected to name spmm_impl jnp")
     counts["chess_tmgcn_lp pallas"] = _run_slice(
-        torch, np, tk, dataclasses.replace(base, spmm_impl="pallas"), e_train, (3, 0, 0, 0, 0))
+        torch, np, tk, dataclasses.replace(base, spmm_impl="pallas"), e_train,
+        (3, 0, 0, 0, 0, 0, 0))
     counts["chess_tmgcn_lp preset (jnp)"] = _run_slice(
-        torch, np, tk, base, e_train, (0, 0, 0, 0, 0), warm=False)
+        torch, np, tk, base, e_train, (0, 0, 0, 0, 0, 0, 0), warm=False)
     wd = get_preset("chess_wdgcn_lp")
     check(wd.spmm_impl == "jnp", "chess_wdgcn_lp is expected to name spmm_impl jnp")
-    counts["chess_wdgcn_lp"] = _run_slice(torch, np, tk, wd, e_train, (EPOCHS, 0, 0, 0, 0))
+    counts["chess_wdgcn_lp"] = _run_slice(torch, np, tk, wd, e_train, (EPOCHS, 0, 0, 0, 0, 0, 0))
     for name, same_block in (("chess_tmgcn_lp", True), ("chess_wdgcn_lp", False)):
         sec = _lp_eval_seconds(np, same_block)
         print(f"{name}: host scoring of one evaluation epoch {sum(sec.values()):.3f} s "
@@ -1258,15 +1517,20 @@ def main() -> int:
     k1.update(restricted_forward=restricted["k1_f32_forward"],
               restricted_backward=restricted["k1_f32_backward"])
     k3, k3_bf16 = phase_k3(torch, np)
+    t0 = time.perf_counter()
+    k1_fast, k3_fast, k1_spmm_bench, fast_counts = phase_fast(torch, np, tk)
+    k1.update(k1_spmm_bench)
+    print(f"fast-tier phase: {time.perf_counter() - t0:.3f} s")
     by_path = {"chess_tmgcn_cls pallas": phase_tmgcn(torch, np, tk, e_train)}
     by_path.update(phase_wdgcn_chess(torch, np, tk, e_train))
     by_path["wdgcn scale 500k x 64"] = phase_wdgcn_scale(torch, np, tk, inputs, t_scale_build)
     tmgcn2_counts, profiles = phase_tmgcn2(torch, np, tk)
     by_path.update(tmgcn2_counts)
     by_path.update(phase_lp(torch, np, tk))
+    by_path.update(fast_counts)
     check("jax" not in sys.modules and "tmgcn_tpu" not in sys.modules,
           "the JAX package was imported")
-    kernels = (k1, k1_bf16, k2, k3, k3_bf16)
+    kernels = (k1, k1_bf16, k2, k3, k3_bf16, k1_fast, k3_fast)
     for i, k in enumerate(kernels):
         k["launches"] = sum(c[i] for c in by_path.values())
         k["launches_by_path"] = {path: c[i] for path, c in by_path.items() if c[i]}
@@ -1279,7 +1543,7 @@ def main() -> int:
             "plain_ms", "bound_ms", "bound_by", "library_ms")
     extra = ("shape", "launches_by_path", "train_window", "lp_readout_backward", "restricted_forward",
              "restricted_backward", "cached_propagation", "k1_at_scale_packing_ms",
-             "readout_backward_ops_ms")
+             "readout_backward_ops_ms", "spmm_bench_r1", "spmm_bench_chess2")
     print(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [
         {**{k: kern[k] for k in keys}, **{k: kern[k] for k in extra if k in kern}}

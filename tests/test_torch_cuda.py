@@ -7,9 +7,9 @@ machine with the card and without JAX (tests/conftest.py imports JAX):
     python -m pytest --noconftest -p no:cacheprovider -q tests/test_torch_cuda.py
 
 Tolerance 1e-5 · max(1, |reference|): float32 sums taken in another order
-(the plain version's index_add_ uses atomics on the card). The bf16 tiers
-take the same tolerance: the plain versions round each product to bf16 as
-the kernels do, so only the order of the float32 sums differs.
+(the plain version's index_add_ uses atomics on the card). The bf16 and
+fast tiers take the same tolerance: the plain versions round each product
+to bf16 as the kernels do, so only the order of the float32 sums differs.
 """
 
 import numpy as np
@@ -191,6 +191,80 @@ def test_k3_matches_plain_and_repeats_bitwise(cuda_device, F, ut_cap, dtype):
     scale = max(1.0, ref.abs().max().item())
     torch.testing.assert_close(out, ref, rtol=0, atol=ATOL * scale)
     assert torch.equal(out, again)
+
+
+@pytest.mark.parametrize("F", [1, 2, 6, 128])
+@pytest.mark.parametrize("use_init", [False, True])
+def test_k1_fast_matches_plain_and_repeats_bitwise(cuda_device, F, use_init):
+    """K1's fast tier (float32 chunks, each product rounded to bf16): its own
+    launch count, its plain version, a bitwise repeat, and not the float32 tier."""
+    p = _packing(40 + F, cuda_device, all_windows=not use_init)
+    g = torch.randn(p.n_chunks, p.chunk, F, device=cuda_device)
+
+    def init():
+        return torch.zeros(p.n_rows_out, F, device=cuda_device) if use_init else None
+
+    k1 = tk.windowed_segment_matmul
+    before = (k1.launches, k1.launches_fast)
+    out = k1(p, g, out_dtype=torch.float32, init=init(), fast=True)
+    again = k1(p, g, out_dtype=torch.float32, init=init(), fast=True)
+    torch.cuda.synchronize()
+    assert (k1.launches, k1.launches_fast) == (before[0], before[1] + 2)
+    ref = tk.windowed_segment_matmul_reference(p, g, out_dtype=torch.float32, init=init(),
+                                               fast=True)
+    torch.testing.assert_close(out, ref, rtol=0, atol=ATOL * max(1.0, ref.abs().max().item()))
+    assert torch.equal(out, again)
+    assert not torch.equal(out, k1(p, g, out_dtype=torch.float32, init=init()))
+
+
+@pytest.mark.parametrize("F", [1, 2, 6, 128])
+@pytest.mark.parametrize("ut_cap", [4, 64])
+def test_k3_fast_matches_plain_and_is_the_bf16_tier(cuda_device, F, ut_cap):
+    """K3's fast tier: its own launch count, its plain version, a bitwise
+    repeat, and bit for bit the bf16 tier on the blocks cast to bf16."""
+    p = _tiled_packing(50 + F + ut_cap, cuda_device, ut_cap, all_windows=ut_cap == 4)
+    g = torch.randn(p.n_chunks, 8 * ut_cap, F, device=cuda_device)
+    k3 = tk.windowed_tiled_segment_matmul
+    before = (k3.launches, k3.launches_bf16, k3.launches_fast)
+    out = k3(p, g, out_dtype=torch.float32, fast=True)
+    again = k3(p, g, out_dtype=torch.float32, fast=True)
+    torch.cuda.synchronize()
+    assert (k3.launches, k3.launches_bf16, k3.launches_fast) == (*before[:2], before[2] + 2)
+    ref = tk.windowed_tiled_segment_matmul_reference(p, g, out_dtype=torch.float32, fast=True)
+    torch.testing.assert_close(out, ref, rtol=0, atol=ATOL * max(1.0, ref.abs().max().item()))
+    assert torch.equal(out, again)
+    assert torch.equal(out, k3(p, g.to(torch.bfloat16), out_dtype=torch.float32))
+
+
+@pytest.mark.parametrize("kwargs,counter", [
+    ({}, "launches_fast"),
+    ({"tile_dedup": True, "chunk": 512}, "launches_fast"),
+    ({"gather_dtype": "bfloat16", "sort_cols": True}, "launches_bf16"),
+])
+def test_fast_operator_backward_on_the_card(cuda_device, kwargs, counter):
+    """make_operator(fast=True) forward and autograd backward against the CPU's
+    plain path, bitwise repeatable; one launch of the tier each way (with bf16
+    gathers, the bf16 tier's)."""
+    rng = np.random.default_rng(8)
+    dense = (rng.random((4, 300, 300)) < 0.05) * rng.random((4, 300, 300))
+    X = torch.from_numpy(rng.standard_normal((4, 300, 6)).astype(np.float32))
+    G = torch.from_numpy(rng.standard_normal((4, 300, 6)).astype(np.float32))
+    op = tk.make_operator(TemporalCOO.from_dense(dense, pad_multiple=16), window=256, fast=True,
+                          **kwargs)
+    kernel = tk.windowed_tiled_segment_matmul if "tile_dedup" in kwargs else tk.windowed_segment_matmul
+
+    def run(device):
+        Xd = X.to(device).requires_grad_(True)
+        out = op.to(device)(Xd)
+        (out * G.to(device)).sum().backward()
+        return out.detach().cpu(), Xd.grad.cpu()
+
+    before = getattr(kernel, counter)
+    on_card = run(cuda_device)
+    assert getattr(kernel, counter) == before + 2
+    assert all(torch.equal(a, b) for a, b in zip(on_card, run(cuda_device)))
+    for a, b in zip(on_card, run("cpu")):
+        torch.testing.assert_close(a, b, rtol=0, atol=ATOL * max(1.0, b.abs().max().item()))
 
 
 # Regimes of the row walk of K1 and K3 (three threads a row) and K2 (one), at F = 6.

@@ -199,14 +199,3 @@ class TestOperator:
         out = tk.spmm_pallas(TemporalCOO.from_dense(dense, pad_multiple=16), torch.from_numpy(X))
         ref = np.einsum("tij,tjf->tif", dense, X.astype(np.float64))
         np.testing.assert_allclose(out.numpy(), ref, atol=ATOL)
-
-    @pytest.mark.parametrize(
-        "kwargs",
-        [{"fast": True}, {"fast": True, "gather_dtype": "bfloat16"},
-         {"fast": True, "tile_dedup": True}],
-    )
-    def test_unported_tiers_raise(self, small_graph, kwargs):
-        """The fast tier is not ported, alone or with the bf16 or tiled packings."""
-        dense, _, _ = small_graph
-        with pytest.raises(NotImplementedError, match="fast tier"):
-            tk.make_operator(TemporalCOO.from_dense(dense), **kwargs)

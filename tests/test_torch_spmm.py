@@ -131,22 +131,17 @@ def test_packing_impls_match_jax(graph, impl, rel):
     )
 
 
-@pytest.mark.parametrize("case", ["pallas_fast_tier", "full_row_auto_operator"])
+@pytest.mark.parametrize("case", ["full_row_auto_operator"])
 def test_still_unported_raise(graph, case):
-    """K1's fast tier and the full-row auto operator are not ported yet."""
-    from tmgcn_torch.kernels.spmm_cuda import PallasSpmmOperator, make_operator
+    """The full-row auto operator is not ported yet."""
     from tmgcn_torch.tasks.adapters import _prepare_bundles
 
     dense, X, _ = graph
     A = TemporalCOO.from_dense(dense, pad_multiple=16)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        if case == "pallas_fast_tier":
-            op = make_operator(A, chunk=32, window=64)
-            PallasSpmmOperator(op.T, op.N, op.packed, op.packed_t, fast=True)
-        else:
-            _prepare_bundles({w: A for w in ("train", "val", "test")},
-                             {w: X for w in ("train", "val", "test")}, None, None, False,
-                             "auto", torch.device("cpu"), readout=False)
+        _prepare_bundles({w: A for w in ("train", "val", "test")},
+                         {w: X for w in ("train", "val", "test")}, None, None, False,
+                         "auto", torch.device("cpu"), readout=False)
 
 
 def test_unknown_impl_raises(graph):

@@ -8,6 +8,8 @@
         --spmm-impl pallas_bf16 --epochs 200
     python -m tmgcn_torch.cli run chess_tmgcn_lp --data-dir data/chess --epochs 200
     python -m tmgcn_torch.cli run chess_wdgcn_lp --data-dir data/chess --epochs 200
+    python -m tmgcn_torch.cli run chess_tmgcn_cls --data-dir data/chess --epochs 5 \
+        --profile prof/        # torch.profiler trace of the run: prof/trace.json
 
 ``run`` uses the card (``--device cuda``, the default) and fails if there
 is none; ``--device cpu`` runs the plain PyTorch path on the CPU. The
@@ -20,6 +22,7 @@ not ported yet (ROADMAP queue 1, item 13).
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import pickle
@@ -50,15 +53,21 @@ def _cmd_run(args) -> int:
         cfg = dataclasses.replace(cfg, spmm_impl=args.spmm_impl)
     alphas = tuple(args.alphas) if args.alphas else None
     t0 = time.time()
-    out = run_experiment(
-        cfg,
-        data_dir=args.data_dir,
-        artifact=args.artifact,
-        n_epochs=args.epochs,
-        alpha_vec=alphas,
-        verbose=not args.quiet,
-        device=args.device,
-    )
+    profile_cm = contextlib.nullcontext()
+    if args.profile:
+        from tmgcn_torch.utils.profiling import trace
+
+        profile_cm = trace(args.profile)
+    with profile_cm:
+        out = run_experiment(
+            cfg,
+            data_dir=args.data_dir,
+            artifact=args.artifact,
+            n_epochs=args.epochs,
+            alpha_vec=alphas,
+            verbose=not args.quiet,
+            device=args.device,
+        )
     elapsed = time.time() - t0
     print(f"{cfg.name}: {len(out['results'])} runs in {elapsed:.1f}s on {args.device}")
 
@@ -108,6 +117,8 @@ def main(argv=None) -> int:
         help="torch device to run on (default cuda; cpu runs the plain path)",
     )
     rp.add_argument("--quiet", action="store_true")
+    rp.add_argument("--profile", metavar="DIR",
+                    help="trace the run with torch.profiler into DIR/trace.json")
 
     args = ap.parse_args(argv)
     if args.cmd == "list":

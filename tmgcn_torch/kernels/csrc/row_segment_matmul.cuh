@@ -63,9 +63,12 @@
 //    (all 64 warps) for a round of 1, which also issues no repeated loads
 //    past a row's end: kRound = kLaneMajorRound = 1.
 //
-// Tiers (tiers.cuh): float32, and bf16 (the value rounded to bf16, each
-// product rounded to bf16, float32 sums and output). K2 has the float32 tier
-// only, as its one user needs.
+// Tiers (tiers.cuh), a tag type each: float32; bf16 (the value rounded to
+// bf16, each product rounded to bf16, float32 sums and output); and the fast
+// tiers of K1 and K3 (float32 input at the TPU's DEFAULT matrix precision),
+// which round as tiers.cuh says. K2 has the float32 tier only: its one JAX
+// caller, the readout plan (tmgcn_tpu/ops/edge_readout.py:230), runs at
+// HIGHEST, so no fast tier exists for it.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -78,17 +81,18 @@ constexpr int kThreads = 256;
 constexpr int kUnroll = 8;
 constexpr int kLaneMajorRound = 1;
 
-template <int FT, bool kTiled, bool kLaneMajor, typename TIn>
+template <int FT, bool kTiled, bool kLaneMajor, typename Tier>
 __global__ void __launch_bounds__(kThreads) row_segment_matmul_kernel(
     const int* __restrict__ entry_order,  // (nnz,) flat slot ids by output row
     const int* __restrict__ row_ptr,      // (n_rows_out + 1,)
     const int* __restrict__ uidx,         // K3: (J, chunk) rows of the tile block
     const float* __restrict__ vals,       // (J, chunk)
-    const TIn* __restrict__ gathered,     // K1 (J, chunk, n_feat); K3 (J, u8, n_feat);
-                                          // K2 (J, n_feat, chunk)
+    const typename Tier::In* __restrict__ gathered,  // K1 (J, chunk, n_feat); K3 (J, u8, n_feat);
+                                                     // K2 (J, n_feat, chunk)
     const int* __restrict__ window_ptr,   // (n_windows + 1) chunk offsets
     float* __restrict__ out,              // (n_rows_out, n_feat); K2 (n_feat, n_rows_out)
     int n_rows_out, int chunk, int u8, int n_feat, int window, int write_empty) {
+  using TIn = typename Tier::In;
   constexpr int kRound = kLaneMajor ? kLaneMajorRound : kUnroll;
   long long row;
   int f0;
@@ -148,13 +152,13 @@ __global__ void __launch_bounds__(kThreads) row_segment_matmul_kernel(
 #pragma unroll
     for (int u = 0; u < kRound; ++u) {
       const bool live = e0 + u < hi;
-      const float vu = Tier<TIn>::round(v[u]);  // the value in the gather's type
+      const float vu = Tier::value(v[u]);
 #pragma unroll
       for (int k = 0; k < FT; ++k) {
-        // Product rounded first (to the tier's type), then added: no fused
-        // multiply-add, so the sum matches the plain version's
+        // Product rounded first (as the tier rounds it), then added: no
+        // fused multiply-add, so the sum matches the plain version's
         // scaled-then-summed order.
-        const float prod = Tier<TIn>::round(__fmul_rn(vu, Tier<TIn>::load(g[u][k])));
+        const float prod = Tier::product(__fmul_rn(vu, Tier::feature(g[u][k])));
         acc[k] = __fadd_rn(acc[k], live ? prod : 0.0f);
       }
     }
@@ -170,11 +174,11 @@ __global__ void __launch_bounds__(kThreads) row_segment_matmul_kernel(
   }
 }
 
-template <int FT, bool kTiled, bool kLaneMajor, typename TIn>
+template <int FT, bool kTiled, bool kLaneMajor, typename Tier>
 cudaError_t launch(const int* entry_order, const int* row_ptr, const int* uidx,
-                   const float* vals, const TIn* gathered, const int* window_ptr, float* out,
-                   int n_rows_out, int chunk, int u8, int n_feat, int window, int write_empty,
-                   cudaStream_t stream) {
+                   const float* vals, const typename Tier::In* gathered, const int* window_ptr,
+                   float* out, int n_rows_out, int chunk, int u8, int n_feat, int window,
+                   int write_empty, cudaStream_t stream) {
   dim3 grid;
   if constexpr (kLaneMajor) {
     // x: rows, a block of kThreads consecutive rows; y: feature groups.
@@ -186,7 +190,7 @@ cudaError_t launch(const int* entry_order, const int* row_ptr, const int* uidx,
     if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
     grid = dim3(static_cast<unsigned>(blocks));
   }
-  row_segment_matmul_kernel<FT, kTiled, kLaneMajor, TIn><<<grid, kThreads, 0, stream>>>(
+  row_segment_matmul_kernel<FT, kTiled, kLaneMajor, Tier><<<grid, kThreads, 0, stream>>>(
       entry_order, row_ptr, uidx, vals, gathered, window_ptr, out, n_rows_out, chunk, u8,
       n_feat, window, write_empty);
   return cudaGetLastError();
@@ -202,7 +206,7 @@ inline int lane_major_group(int n_feat) {
 
 // One launch for any F. Row-major: the widest feature group of 4, 2 or 1
 // that divides F; lane-major: lane_major_group(F).
-template <bool kTiled, bool kLaneMajor, typename TIn>
+template <bool kTiled, bool kLaneMajor, typename Tier>
 int dispatch(const void* entry_order, const void* row_ptr, const void* uidx, const void* vals,
              const void* gathered, const void* window_ptr, void* out, int n_rows_out, int chunk,
              int u8, int n_feat, int window, int write_empty, void* stream) {
@@ -214,12 +218,12 @@ int dispatch(const void* entry_order, const void* row_ptr, const void* uidx, con
   const int* rp = static_cast<const int*>(row_ptr);
   const int* ui = static_cast<const int*>(uidx);
   const float* v = static_cast<const float*>(vals);
-  const TIn* g = static_cast<const TIn*>(gathered);
+  const auto* g = static_cast<const typename Tier::In*>(gathered);
   const int* wp = static_cast<const int*>(window_ptr);
   float* o = static_cast<float*>(out);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define ROW_SEGMENT_LAUNCH(FT)                                                                 \
-  return launch<FT, kTiled, kLaneMajor, TIn>(eo, rp, ui, v, g, wp, o, n_rows_out, chunk, u8, \
+  return launch<FT, kTiled, kLaneMajor, Tier>(eo, rp, ui, v, g, wp, o, n_rows_out, chunk, u8, \
                                              n_feat, window, write_empty, s)
   if constexpr (kLaneMajor) {
     switch (lane_major_group(n_feat)) {

@@ -22,11 +22,14 @@
 // about it, and how the two layouts map threads (K2: consecutive lanes own
 // consecutive rows, so its transposed stores coalesce). The sums are taken in
 // the same order in both layouts, so K2 is K1 transposed, bit for bit. K1 has
-// two tiers (tiers.cuh): float32, and the bf16-gather tier of
+// three tiers (tiers.cuh): float32; the bf16-gather tier of
 // tmgcn_tpu/kernels/spmm_pallas.py:827-840 (gathered features in bf16, each
 // product rounded to bf16, float32 sums and output), which halves the bytes
-// of the gathered features. K2 has the float32 tier only, as its one user
-// needs.
+// of the gathered features; and the fast tier (`fast=True` on float32
+// chunks: the TPU kernel at DEFAULT precision, each float32 product rounded
+// to bf16, float32 sums), which reads the same float32 bytes as the first.
+// K2 has the float32 tier only: its one JAX caller, the readout plan
+// (tmgcn_tpu/ops/edge_readout.py:230), runs at HIGHEST.
 //
 // write_empty == 0 (the caller passes a zero-initialised `init` as out):
 // windows with no chunk are not written. Otherwise they are written as 0.
@@ -34,16 +37,15 @@
 #include <cuda_runtime.h>
 
 #include "row_segment_matmul.cuh"
-#include "tiers.cuh"
 
 // K1: gathered (J, chunk, n_feat) -> out (n_rows_out, n_feat), over the row index.
 extern "C" int tmgcn_windowed_segment_matmul_f32(
     const void* entry_order, const void* row_ptr, const void* vals, const void* gathered,
     const void* window_ptr, void* out, int n_rows_out, int n_feat, int window,
     int write_empty, void* stream) {
-  return row_segment::dispatch<false, false, float>(entry_order, row_ptr, nullptr, vals,
-                                                    gathered, window_ptr, out, n_rows_out, 0, 0,
-                                                    n_feat, window, write_empty, stream);
+  return row_segment::dispatch<false, false, tier::F32>(entry_order, row_ptr, nullptr, vals,
+                                                        gathered, window_ptr, out, n_rows_out, 0,
+                                                        0, n_feat, window, write_empty, stream);
 }
 
 // K1, bf16-gather tier: gathered (J, chunk, n_feat) bf16 -> out float32.
@@ -51,7 +53,18 @@ extern "C" int tmgcn_windowed_segment_matmul_bf16(
     const void* entry_order, const void* row_ptr, const void* vals, const void* gathered,
     const void* window_ptr, void* out, int n_rows_out, int n_feat, int window,
     int write_empty, void* stream) {
-  return row_segment::dispatch<false, false, __nv_bfloat16>(
+  return row_segment::dispatch<false, false, tier::Bf16>(
+      entry_order, row_ptr, nullptr, vals, gathered, window_ptr, out, n_rows_out, 0, 0, n_feat,
+      window, write_empty, stream);
+}
+
+// K1, fast tier: gathered (J, chunk, n_feat) float32 -> out float32, each
+// float32 product rounded to bf16 before the float32 add.
+extern "C" int tmgcn_windowed_segment_matmul_fast(
+    const void* entry_order, const void* row_ptr, const void* vals, const void* gathered,
+    const void* window_ptr, void* out, int n_rows_out, int n_feat, int window,
+    int write_empty, void* stream) {
+  return row_segment::dispatch<false, false, tier::F32FastK1>(
       entry_order, row_ptr, nullptr, vals, gathered, window_ptr, out, n_rows_out, 0, 0, n_feat,
       window, write_empty, stream);
 }
@@ -61,7 +74,8 @@ extern "C" int tmgcn_windowed_segment_matmul_t_f32(
     const void* entry_order, const void* row_ptr, const void* vals, const void* gathered_t,
     const void* window_ptr, void* out, int n_rows_out, int chunk, int n_feat, int window,
     int write_empty, void* stream) {
-  return row_segment::dispatch<false, true, float>(entry_order, row_ptr, nullptr, vals,
-                                                   gathered_t, window_ptr, out, n_rows_out,
-                                                   chunk, 0, n_feat, window, write_empty, stream);
+  return row_segment::dispatch<false, true, tier::F32>(entry_order, row_ptr, nullptr, vals,
+                                                       gathered_t, window_ptr, out, n_rows_out,
+                                                       chunk, 0, n_feat, window, write_empty,
+                                                       stream);
 }

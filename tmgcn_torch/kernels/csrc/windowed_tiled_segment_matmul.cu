@@ -16,9 +16,14 @@
 // one nonzero per row, so each product is rounded once. Here the expand is an
 // indexed read of the tile block: same sums, same rounding.
 //
-// Tiers (tiers.cuh): float32, and bf16 (the TPU kernel's bf16 operands: the
+// Tiers (tiers.cuh): float32; bf16 (the TPU kernel's bf16 operands: the
 // value rounded to bf16, the product rounded to bf16 by `.astype(g_ref.dtype)`
-// after the expand, float32 sums and output).
+// after the expand, float32 sums and output); and the fast tier (`fast=True`
+// on float32 blocks: the TPU kernel at DEFAULT precision, whose expand matmul
+// rounds the value and the features to bf16 and whose scatter matmul rounds
+// their product to bf16): the bf16 tier's arithmetic, with the float32
+// features rounded as they are loaded, so it equals the bf16 tier on the
+// same features cast to bf16, bit for bit.
 //
 // What its function needs on this card: bytes. Each real entry's slot id,
 // tile index and value (12 bytes) read once, each distinct tile's 8 rows of F
@@ -55,9 +60,10 @@ extern "C" int tmgcn_windowed_tiled_segment_matmul_f32(
     const void* entry_order, const void* row_ptr, const void* uidx, const void* vals,
     const void* gathered, const void* window_ptr, void* out, int n_rows_out, int chunk, int u8,
     int n_feat, int window, int write_empty, void* stream) {
-  return row_segment::dispatch<true, false, float>(entry_order, row_ptr, uidx, vals, gathered,
-                                                   window_ptr, out, n_rows_out, chunk, u8, n_feat,
-                                                   window, write_empty, stream);
+  return row_segment::dispatch<true, false, tier::F32>(entry_order, row_ptr, uidx, vals,
+                                                       gathered, window_ptr, out, n_rows_out,
+                                                       chunk, u8, n_feat, window, write_empty,
+                                                       stream);
 }
 
 // K3, bf16 tier: gathered (J, u8, n_feat) bf16 -> out float32.
@@ -65,7 +71,18 @@ extern "C" int tmgcn_windowed_tiled_segment_matmul_bf16(
     const void* entry_order, const void* row_ptr, const void* uidx, const void* vals,
     const void* gathered, const void* window_ptr, void* out, int n_rows_out, int chunk, int u8,
     int n_feat, int window, int write_empty, void* stream) {
-  return row_segment::dispatch<true, false, __nv_bfloat16>(
+  return row_segment::dispatch<true, false, tier::Bf16>(
+      entry_order, row_ptr, uidx, vals, gathered, window_ptr, out, n_rows_out, chunk, u8, n_feat,
+      window, write_empty, stream);
+}
+
+// K3, fast tier: gathered (J, u8, n_feat) float32 -> out float32, rounded as
+// the bf16 tier after each feature is rounded to bf16 on load.
+extern "C" int tmgcn_windowed_tiled_segment_matmul_fast(
+    const void* entry_order, const void* row_ptr, const void* uidx, const void* vals,
+    const void* gathered, const void* window_ptr, void* out, int n_rows_out, int chunk, int u8,
+    int n_feat, int window, int write_empty, void* stream) {
+  return row_segment::dispatch<true, false, tier::F32FastK3>(
       entry_order, row_ptr, uidx, vals, gathered, window_ptr, out, n_rows_out, chunk, u8, n_feat,
       window, write_empty, stream);
 }

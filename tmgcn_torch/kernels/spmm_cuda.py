@@ -19,14 +19,15 @@ tmgcn_tpu/kernels/spmm_pallas.py:608-721) and takes the same host packing:
     What bounds it, and what its design does about that, is noted at the
     top of ``csrc/row_segment_matmul.cuh``.
 
-K1 has the JAX package's exact float32 tier and its bf16-gather tier
-(``gather_dtype="bfloat16"``: X is cast to bf16 before the gather, each
-product is rounded to bf16 and summed in float32, the output is float32),
-two entry points of one kernel template with a launch count each
-(``windowed_segment_matmul.launches`` and ``.launches_bf16``). Its ``fast``
-tier (float32 at the TPU's DEFAULT matrix precision, reached only by the
-JAX package's utils/spmm_bench.py) is not ported: asking for it raises
-NotImplementedError (ROADMAP queue 2).
+K1 has the JAX package's three tiers, entry points of one kernel template
+with a launch count each: the exact float32 tier (``.launches``); the
+bf16-gather tier (``gather_dtype="bfloat16"``: X is cast to bf16 before the
+gather, each product is rounded to bf16 and summed in float32, the output
+is float32; ``.launches_bf16``); and the ``fast`` tier (float32 chunks at
+the TPU's DEFAULT matrix precision: each float32 product rounded to bf16,
+summed in float32; ``.launches_fast``), which the JAX package reaches from
+utils/spmm_bench.py and tools/kernel_probe.py. ``fast`` with bf16 gathers
+is the bf16 tier (DEFAULT either way in the JAX package).
 
 K2, ``windowed_segment_matmul_t``, is the same sums with the layout
 transposed — (J, F, C) chunks in, (F, n_rows_out) out — and replaces the
@@ -41,8 +42,11 @@ replaces the Pallas kernel of the same name (body ``_tiled_scatter_kernel``,
 tmgcn_tpu/kernels/spmm_pallas.py:510-605) over the tile-dedup packing
 ``PackedTiled``: each chunk's distinct 8-row tiles of X are gathered once,
 and the kernel reads each entry's row from that block by ``uidx``, walking
-the same row index as K1. Float32 and bf16 tiers, launch counts
-``.launches`` and ``.launches_bf16``.
+the same row index as K1. Float32, bf16 and fast tiers, launch counts
+``.launches``, ``.launches_bf16`` and ``.launches_fast``; K3's fast tier
+rounds the value and the features to bf16 and their product again (the
+TPU's DEFAULT expand and scatter matmuls), so it is the bf16 tier on the
+features cast to bf16.
 
 Every kernel wrapper launches its kernel for a CUDA tensor and raises where
 it cannot; it takes its plain PyTorch version (``*_reference``) only for a
@@ -439,15 +443,17 @@ def windowed_segment_matmul_reference(
     gathered: torch.Tensor,
     out_dtype: torch.dtype | None = None,
     init: torch.Tensor | None = None,
+    fast: bool = False,
 ) -> torch.Tensor:
     """Plain PyTorch version of K1: (J, C, F) gathered -> (n_rows_out, F).
 
     out[w*W + r] = Σ over the chunks of window w and their entries with
     row r of vals * gathered, each product rounded to gathered's type
     (bf16 products for bf16 chunks, as the TPU kernel's bf16 ``g * v``),
-    then summed in ``out_dtype``. Windows without a chunk are 0, or, with
-    ``init``, keep init's content: init is written in place and returned,
-    as the kernel does.
+    and with ``fast`` then rounded to bf16 (the TPU kernel's DEFAULT
+    one-hot matmul), then summed in ``out_dtype``. Windows without a chunk
+    are 0, or, with ``init``, keep init's content: init is written in place
+    and returned, as the kernel does.
     """
     J, C = packed.rows.shape
     F = gathered.shape[-1]
@@ -457,7 +463,10 @@ def windowed_segment_matmul_reference(
     wid = torch.as_tensor(packed.window_id, device=gathered.device).long()
     vals = torch.as_tensor(packed.vals, device=gathered.device).to(gathered.dtype)
     out_rows = (wid[:, None] * W + rows).reshape(J * C)
-    scaled = (gathered * vals[..., None]).reshape(J * C, F).to(out_dtype)
+    scaled = gathered * vals[..., None]
+    if fast:
+        scaled = scaled.to(torch.bfloat16)
+    scaled = scaled.reshape(J * C, F).to(out_dtype)
     acc = torch.zeros((packed.n_rows_out, F), dtype=out_dtype, device=gathered.device)
     acc.index_add_(0, out_rows, scaled)
     if init is None:
@@ -491,13 +500,19 @@ def windowed_tiled_segment_matmul_reference(
     packed: PackedTiled,
     gathered: torch.Tensor,
     out_dtype: torch.dtype | None = None,
+    fast: bool = False,
 ) -> torch.Tensor:
     """Plain PyTorch version of K3: (J, U8, F) tile blocks -> (n_rows_out, F).
 
     Each entry's row is read from its chunk's block by ``uidx`` (the TPU
     kernel's one-hot expand), then K1's plain version sums them: the same
-    products, rounded to gathered's type, summed in ``out_dtype``.
+    products, rounded to gathered's type, summed in ``out_dtype``. With
+    ``fast`` the blocks are rounded to bf16 first (the DEFAULT expand
+    rounds both of its operands), which makes it the bf16 tier.
     """
+    if fast:
+        out_dtype = gathered.dtype if out_dtype is None else out_dtype
+        gathered = gathered.to(torch.bfloat16)
     J, C = packed.rows.shape
     F = gathered.shape[-1]
     uidx = torch.as_tensor(packed.uidx, device=gathered.device).long()
@@ -551,11 +566,12 @@ def _output(
 
 def _launch_rows(
     symbol: str, packed: PackedSpmm | PackedTiled, gathered: torch.Tensor,
-    init: torch.Tensor | None, lane_major: bool = False,
+    init: torch.Tensor | None, counter: tuple[object, str], lane_major: bool = False,
 ) -> torch.Tensor:
     """Check the arguments of K1, K2 (``lane_major``: (J, F, C) in, (F,
     n_rows_out) out) or K3 (by the packing's type) and launch it on the
-    current stream: one launch over the packing's row index."""
+    current stream: one launch over the packing's row index, which adds
+    one to ``counter`` (the wrapper and the name of its tier's count)."""
     device = gathered.device
     F = gathered.shape[1 if lane_major else -1]
     _check_cuda("gathered", gathered, gathered.dtype, device)
@@ -584,7 +600,21 @@ def _launch_rows(
         )
     if err != 0:
         raise RuntimeError(f"{symbol} launch failed: CUDA error {err}")
+    wrapper, name = counter
+    setattr(wrapper, name, getattr(wrapper, name) + 1)
     return out
+
+
+def _tier(gathered: torch.Tensor, fast: bool) -> str:
+    """The kernel tier for these chunks: bf16 chunks take the bf16 tier
+    whatever ``fast`` says (the JAX package runs them at DEFAULT either way)."""
+    if gathered.dtype == torch.bfloat16:
+        return "bf16"
+    return "fast" if fast else "f32"
+
+
+# The launch counter of each tier.
+_COUNTER = {"f32": "launches", "bf16": "launches_bf16", "fast": "launches_fast"}
 
 
 def windowed_segment_matmul(
@@ -592,18 +622,20 @@ def windowed_segment_matmul(
     gathered: torch.Tensor,
     out_dtype: torch.dtype | None = None,
     init: torch.Tensor | None = None,
+    fast: bool = False,
 ) -> torch.Tensor:
     """K1: (J, C, F) gathered chunks -> (n_rows_out, F) window segment sums.
 
-    On a CUDA tensor this launches the CUDA kernel — float32 chunks, or
-    bf16 chunks (the bf16-gather tier), float32 out — and raises on
-    anything it does not take; on a CPU tensor it runs the plain version.
-    ``init``: a zero (n_rows_out, F) float32 tensor used as the output
-    itself — windows without a chunk are not written. Required with
-    ``all_windows=False`` packings.
+    On a CUDA tensor this launches the CUDA kernel — float32 chunks (with
+    ``fast``, each product rounded to bf16), or bf16 chunks (the
+    bf16-gather tier), float32 out — and raises on anything it does not
+    take; on a CPU tensor it runs the plain version. ``init``: a zero
+    (n_rows_out, F) float32 tensor used as the output itself — windows
+    without a chunk are not written. Required with ``all_windows=False``
+    packings.
     """
     if gathered.device.type == "cpu":
-        return windowed_segment_matmul_reference(packed, gathered, out_dtype, init)
+        return windowed_segment_matmul_reference(packed, gathered, out_dtype, init, fast)
     if gathered.device.type != "cuda":
         raise ValueError(f"no kernel for device {gathered.device}")
     _check_tier(gathered, out_dtype, (torch.float32, torch.bfloat16))
@@ -611,19 +643,15 @@ def windowed_segment_matmul(
     J, C = packed.rows.shape
     if gathered.shape != (J, C, F) or F < 1:
         raise ValueError(f"gathered must be ({J}, {C}, F>=1), got {tuple(gathered.shape)}")
-    bf16 = gathered.dtype == torch.bfloat16
-    symbol = "tmgcn_windowed_segment_matmul_" + ("bf16" if bf16 else "f32")
-    out = _launch_rows(symbol, packed, gathered, init)
-    if bf16:
-        windowed_segment_matmul.launches_bf16 += 1
-    else:
-        windowed_segment_matmul.launches += 1
-    return out
+    tier = _tier(gathered, fast)
+    return _launch_rows("tmgcn_windowed_segment_matmul_" + tier, packed, gathered, init,
+                        (windowed_segment_matmul, _COUNTER[tier]))
 
 
 # Kernel launches of each tier, for run accounting.
 windowed_segment_matmul.launches = 0
 windowed_segment_matmul.launches_bf16 = 0
+windowed_segment_matmul.launches_fast = 0
 
 
 def windowed_segment_matmul_t(
@@ -650,10 +678,8 @@ def windowed_segment_matmul_t(
     F = gathered_t.shape[1] if gathered_t.dim() == 3 else 0
     if gathered_t.shape != (J, F, C) or F < 1:
         raise ValueError(f"gathered_t must be ({J}, F>=1, {C}), got {tuple(gathered_t.shape)}")
-    out = _launch_rows("tmgcn_windowed_segment_matmul_t_f32", packed, gathered_t, init,
-                       lane_major=True)
-    windowed_segment_matmul_t.launches += 1
-    return out
+    return _launch_rows("tmgcn_windowed_segment_matmul_t_f32", packed, gathered_t, init,
+                        (windowed_segment_matmul_t, "launches"), lane_major=True)
 
 
 windowed_segment_matmul_t.launches = 0  # kernel launches, for run accounting
@@ -663,16 +689,18 @@ def windowed_tiled_segment_matmul(
     packed: PackedTiled,
     gathered: torch.Tensor,
     out_dtype: torch.dtype | None = None,
+    fast: bool = False,
 ) -> torch.Tensor:
     """K3: (J, ut_cap * 8, F) distinct-tile blocks -> (n_rows_out, F) sums.
 
-    On a CUDA tensor this launches the CUDA kernel — float32 or bf16
-    blocks, float32 out, every window written (0 where it has no chunk) —
-    and raises on anything it does not take; on a CPU tensor it runs the
-    plain version.
+    On a CUDA tensor this launches the CUDA kernel — float32 blocks (with
+    ``fast``, rounded as the bf16 tier after a bf16 rounding of each
+    feature) or bf16 blocks, float32 out, every window written (0 where it
+    has no chunk) — and raises on anything it does not take; on a CPU
+    tensor it runs the plain version.
     """
     if gathered.device.type == "cpu":
-        return windowed_tiled_segment_matmul_reference(packed, gathered, out_dtype)
+        return windowed_tiled_segment_matmul_reference(packed, gathered, out_dtype, fast)
     if gathered.device.type != "cuda":
         raise ValueError(f"no kernel for device {gathered.device}")
     _check_tier(gathered, out_dtype, (torch.float32, torch.bfloat16))
@@ -681,33 +709,21 @@ def windowed_tiled_segment_matmul(
     F = gathered.shape[-1] if gathered.dim() == 3 else 0
     if gathered.shape != (J, U8, F) or F < 1:
         raise ValueError(f"gathered must be ({J}, {U8}, F>=1), got {tuple(gathered.shape)}")
-    bf16 = gathered.dtype == torch.bfloat16
-    symbol = "tmgcn_windowed_tiled_segment_matmul_" + ("bf16" if bf16 else "f32")
-    out = _launch_rows(symbol, packed, gathered, None)
-    if bf16:
-        windowed_tiled_segment_matmul.launches_bf16 += 1
-    else:
-        windowed_tiled_segment_matmul.launches += 1
-    return out
+    tier = _tier(gathered, fast)
+    return _launch_rows("tmgcn_windowed_tiled_segment_matmul_" + tier, packed, gathered, None,
+                        (windowed_tiled_segment_matmul, _COUNTER[tier]))
 
 
 # Kernel launches of each tier, for run accounting.
 windowed_tiled_segment_matmul.launches = 0
 windowed_tiled_segment_matmul.launches_bf16 = 0
+windowed_tiled_segment_matmul.launches_fast = 0
 
 
 def _gather_dtype(name: str | None) -> torch.dtype | None:
     if name not in GATHER_DTYPES:
         raise ValueError(f"gather_dtype must be one of {list(GATHER_DTYPES)}, got {name!r}")
     return GATHER_DTYPES[name]
-
-
-def _check_fast(fast: bool) -> None:
-    if fast:
-        raise NotImplementedError(
-            "the fast tier of K1 (float32 at the TPU's DEFAULT matrix precision) is not "
-            "ported yet (ROADMAP queue 2, K1)"
-        )
 
 
 def gather_chunks(flat: torch.Tensor, packed: PackedSpmm | PackedTiled) -> torch.Tensor:
@@ -730,9 +746,11 @@ def gather_chunks(flat: torch.Tensor, packed: PackedSpmm | PackedTiled) -> torch
 
 
 def _flat_fwd_impl(
-    n_out: int, gather_dtype: str | None, packed: PackedSpmm | PackedTiled, flat: torch.Tensor
+    n_out: int, fast: bool, gather_dtype: str | None, packed: PackedSpmm | PackedTiled,
+    flat: torch.Tensor,
 ) -> torch.Tensor:
-    """(n_in, F) -> (n_out, F): gather, then K1 (or K3 for a tiled packing)."""
+    """(n_in, F) -> (n_out, F): gather, then K1 (or K3 for a tiled packing)
+    in the tier that ``fast`` and ``gather_dtype`` name."""
     out_dtype = flat.dtype
     gdt = _gather_dtype(gather_dtype)
     if gdt is not None:
@@ -741,22 +759,23 @@ def _flat_fwd_impl(
         flat = flat.to(gdt)
     gathered = gather_chunks(flat, packed)
     if isinstance(packed, PackedTiled):
-        return windowed_tiled_segment_matmul(packed, gathered, out_dtype=out_dtype)[:n_out]
-    return windowed_segment_matmul(packed, gathered, out_dtype=out_dtype)[:n_out]
+        return windowed_tiled_segment_matmul(packed, gathered, out_dtype, fast)[:n_out]
+    return windowed_segment_matmul(packed, gathered, out_dtype, fast=fast)[:n_out]
 
 
 class _FlatSpmm(torch.autograd.Function):
-    """(n_in, F) -> (n_out, F) through the packing; dX = Aᵀ dY through the transpose's."""
+    """(n_in, F) -> (n_out, F) through the packing; dX = Aᵀ dY through the
+    transpose's, in the same tier (as the JAX package's ``_flat_spmm_bwd``)."""
 
     @staticmethod
     def forward(ctx, flat, op):
         ctx.op = op
-        return _flat_fwd_impl(op.n_out, op.gather_dtype, op.packed, flat)
+        return _flat_fwd_impl(op.n_out, op.fast, op.gather_dtype, op.packed, flat)
 
     @staticmethod
     def backward(ctx, dY):
         op = ctx.op
-        return _flat_fwd_impl(op.n_in, op.gather_dtype, op.packed_t, dY), None
+        return _flat_fwd_impl(op.n_in, op.fast, op.gather_dtype, op.packed_t, dY), None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -777,7 +796,6 @@ class FlatPallasOperator:
     gather_dtype: str | None = None
 
     def __post_init__(self):
-        _check_fast(self.fast)
         _gather_dtype(self.gather_dtype)
 
     def to(self, device: str | torch.device) -> "FlatPallasOperator":
@@ -808,8 +826,8 @@ def make_flat_operator(
     rows (< n_out) need not be pre-sorted; the stream is row-sorted here.
     The transpose packing (cols as rows, < n_in) powers the backward.
     tile_dedup packs for K3 (PackedTiled); sort_cols is implied there.
+    fast runs K1's (or K3's) fast tier, forward and backward.
     """
-    _check_fast(fast)
     rows = np.asarray(rows, np.int64)
     cols = np.asarray(cols, np.int64)
     vals = np.asarray(vals)
@@ -830,7 +848,7 @@ def make_flat_operator(
             cols[order_t], rows[order_t], vals[order_t], n_in, chunk, window, sort_cols
         )
     return FlatPallasOperator(
-        n_in=int(n_in), n_out=int(n_out), packed=packed, packed_t=packed_t,
+        n_in=int(n_in), n_out=int(n_out), packed=packed, packed_t=packed_t, fast=fast,
         gather_dtype=gather_dtype,
     )
 
@@ -840,8 +858,9 @@ class PallasSpmmOperator:
     """A prepacked SpMM operator: call on (T, N, F) features.
 
     The name is the JAX package's; here it runs the CUDA kernels (or their
-    plain versions for CPU tensors): K1 (float32, or bf16 gathers with
-    ``gather_dtype="bfloat16"``), or K3 for a tiled packing.
+    plain versions for CPU tensors): K1 (float32, its fast tier with
+    ``fast``, or bf16 gathers with ``gather_dtype="bfloat16"``), or K3 for
+    a tiled packing, in the same tiers.
     """
 
     T: int
@@ -852,7 +871,6 @@ class PallasSpmmOperator:
     gather_dtype: str | None = None
 
     def __post_init__(self):
-        _check_fast(self.fast)
         _gather_dtype(self.gather_dtype)
 
     @property
@@ -874,7 +892,7 @@ class PallasSpmmOperator:
         T, N, F = X.shape
         flat_op = FlatPallasOperator(
             n_in=T * N, n_out=T * N, packed=self.packed, packed_t=self.packed_t,
-            gather_dtype=self.gather_dtype,
+            fast=self.fast, gather_dtype=self.gather_dtype,
         )
         return flat_op(X.reshape(T * N, F)).reshape(T, N, F)
 
@@ -891,11 +909,11 @@ def make_operator(
 ) -> PallasSpmmOperator:
     """Prepack forward + transpose packings for A (host-side, numpy).
 
-    gather_dtype="bfloat16" runs K1's (or K3's) bf16 tier; tile_dedup packs
-    for K3 (PackedTiled, budget ``ut_cap`` distinct tiles per chunk). Move
-    the operator to the device once with ``.to(device)``.
+    gather_dtype="bfloat16" runs K1's (or K3's) bf16 tier, and fast (with
+    float32 gathers) their fast tier; tile_dedup packs for K3 (PackedTiled,
+    budget ``ut_cap`` distinct tiles per chunk). Move the operator to the
+    device once with ``.to(device)``.
     """
-    _check_fast(fast)
     if tile_dedup:
         packed = pack_windowed_tiled(A, chunk, window, ut_cap)
         packed_t = pack_windowed_tiled(A.transpose(), chunk, window, ut_cap)
@@ -903,7 +921,8 @@ def make_operator(
         packed = pack_windowed(A, chunk, window, sort_cols)
         packed_t = pack_windowed(A.transpose(), chunk, window, sort_cols)
     return PallasSpmmOperator(
-        T=A.n_slices, N=A.n_nodes, packed=packed, packed_t=packed_t, gather_dtype=gather_dtype
+        T=A.n_slices, N=A.n_nodes, packed=packed, packed_t=packed_t, fast=fast,
+        gather_dtype=gather_dtype,
     )
 
 
