@@ -63,15 +63,20 @@ non-zero, and nothing falls back to the CPU:
                timed at both workloads and K3 fast and K3 f32 at r1's tiled
                packing, beside bound and torch.sparse.mm;
   7. paths   — the main paths, each with every launch count set to 0 just
-               before it and read just after:
+               before it and read just after. Every training step on the
+               card is a replay of one captured CUDA graph (train/loop.py);
+               the paths marked "vs eager" run again through the loop's
+               eager chunks, and the rows and launch counts must be
+               bitwise the same:
                a. ``run_experiment`` of chess_tmgcn_cls, spmm_impl="pallas",
                   200 epochs: 3 K1 launches (the cached propagation), then
-                  the same run warm (same rows) and 5 epochs against the
-                  CPU's plain path;
+                  the same run warm (same rows), vs eager, and 5 epochs
+                  against the CPU's plain path;
                b. ``run_experiment`` of chess_wdgcn_cls (the preset's
                   spmm_impl "jnp"), 200 epochs: 200 K1 launches (the
                   readout plan's backward, one per step), 0 K2; warm rerun
-                  with the same rows; 5 epochs against the CPU's plain path;
+                  with the same rows; vs eager; 5 epochs against the CPU's
+                  plain path;
                c. ``python -m tmgcn_torch.cli run chess_wdgcn_cls
                   --spmm-impl pallas --epochs 200`` (in process): 203 K1
                   launches (3 for the cached propagation);
@@ -81,22 +86,22 @@ non-zero, and nothing falls back to the CPU:
                   launch per training step, no K1; then, outside the
                   counts, 3 more warm steps traced with torch.profiler:
                   device ms per step, busy share, launch calls per step,
-                  the top kernels' device ms;
+                  the top kernels' device ms; then on the same adapter the
+                  steps eager and captured from the same parameters (losses
+                  bitwise the counted run's), each side's peak device
+                  memory, and both timed in turns (ms per step);
                e. ``run_experiment`` of chess_tmgcn2_cls, spmm_impl="pallas",
                   200 epochs: 407 K1 launches (3 cached propagations, the
                   restricted layer 2 forward and backward per step, val and
                   test forwards at 2 evaluation epochs); a warm rerun with
-                  the same rows; 5 epochs against the CPU's plain path;
-                  then, outside the counts, a traced warm run of 21 epochs
-                  with "pallas" and with the preset's "jnp" (restricted
-                  layer 2 as K1 and as block-dense): device ms per epoch
-                  and busy share, as profile_slice measures them;
+                  the same rows; vs eager; 5 epochs against the CPU's plain
+                  path;
                f. the same with "pallas_bf16": 407 bf16 K1 launches;
                g. "pallas_tiled" and "pallas_tiled_bf16", 5 epochs each: 3
                   K3 launches of the tier (the cached propagations; layer 2
                   is "auto": block-dense on chess, no K1);
                h. the preset as it stands ("jnp": auto, block-dense), 200
-                  epochs: no hand-written kernel launched;
+                  epochs: no hand-written kernel launched; vs eager;
                i. ``run_experiment`` of chess_tmgcn_lp (link prediction,
                   772,520 training edges, (epochs, 9) MAP-MRR rows), 200
                   epochs: with spmm_impl="pallas" 3 K1 launches (the cached
@@ -106,12 +111,21 @@ non-zero, and nothing falls back to the CPU:
                   CPU;
                j. ``run_experiment`` of chess_wdgcn_lp (the preset's "jnp"),
                   200 epochs: 200 K1 launches (the readout plan's backward,
-                  one per training step), a warm rerun with the same rows, 5
-                  epochs against the CPU's plain path; then, for both LP
+                  one per training step), a warm rerun with the same rows,
+                  vs eager, 5 epochs against the CPU's plain path; then, for
+                  both LP
                   presets, the host scoring of one evaluation epoch (MAP,
                   MRR and loss of the three windows) timed alone;
-  8. a JSON line {"kernels": [...]} with every ported kernel's numbers;
-  9. last line: {"ok": true, "device": {...}}.
+  8. capture — chess_tmgcn_cls (pallas), chess_tmgcn2_cls (pallas and the
+               preset's jnp), chess_wdgcn_cls and chess_wdgcn_lp: plain
+               epochs captured and eager, timed in turns as bench.py times
+               a chunk (a warm chunk, the chunk grown until a round covers
+               0.25 s, the median of 5 rounds, with best, max and spread),
+               then a warm captured chunk of 21 epochs traced (device ms per
+               epoch, busy share), each beside the card's name and power
+               limit;
+  9. a JSON line {"kernels": [...]} with every ported kernel's numbers;
+ 10. last line: {"ok": true, "device": {...}}.
 
 Without CUDA, or outside a checkout, it exits non-zero and prints no
 result. It imports nothing of JAX.
@@ -119,13 +133,16 @@ result. It imports nothing of JAX.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
+import gc
 import json
 import statistics
 import subprocess
 import sys
 import time
+from unittest import mock
 
 try:  # the card's data-sheet peaks: float32 outside the tensor cores, HBM3
     from tmgcn_torch.utils.profiling import PEAK_FLOPS_F32 as PEAK_F32_FLOP_PER_S
@@ -1249,9 +1266,21 @@ def _counted(tk, fn):
     return out, tuple(getattr(getattr(tk, fn_name), counter) for fn_name, counter in COUNTERS)
 
 
+@contextlib.contextmanager
+def _eager_loop():
+    """The training loop's eager chunks in place of the captured ones: the
+    reference the captured loop is held to on the card."""
+    from tmgcn_torch.train import loop
+
+    with mock.patch.object(loop, "_chunks", loop._EagerChunks):
+        yield
+
+
 def _run_slice(torch, np, tk, cfg, e_train: int, expected: tuple, epochs: int = EPOCHS,
-               warm: bool = True, rtol: float = 1e-4) -> tuple:
-    """Epochs on cuda (counted), a warm rerun, 5 epochs against the CPU."""
+               warm: bool = True, rtol: float = 1e-4, vs_eager: bool = False) -> tuple:
+    """Epochs on cuda (counted), a warm rerun, with ``vs_eager`` the same
+    run through the loop's eager chunks (rows bitwise equal, the same
+    launches), 5 epochs against the CPU."""
     from tmgcn_torch.configs.build import run_experiment
 
     name = f"{cfg.name} ({cfg.spmm_impl})"
@@ -1288,6 +1317,21 @@ def _run_slice(torch, np, tk, cfg, e_train: int, expected: tuple, epochs: int = 
               f"{e_train * epochs / t_warm:.1f} {'training' if lp else 'labelled'} edges/s "
               f"({e_train} training edges, {epochs} epochs, "
               f"{-(-epochs // cfg.eval_every)} evaluation epochs)")
+    if vs_eager:
+        # The same run with every step issued from Python: the captured
+        # loop replays exactly what the eager one runs.
+        with _eager_loop():
+            eager, eager_launches = _counted(tk, lambda: run_experiment(
+                cfg, data_dir=DATA_DIR, n_epochs=epochs, verbose=False, device=DEVICE))
+        (eager_res,) = eager["results"].values()
+        check(np.array_equal(eager_res, res, equal_nan=True),
+              f"{name}: the captured loop's rows differ from the eager loop's: max abs diff "
+              f"{np.nanmax(np.abs(eager_res - res))}")
+        check(eager_launches == launches,
+              f"{name}: the eager loop launched {eager_launches}, the captured {launches}")
+        print(f"slice {name} captured vs eager loop, {epochs} epochs: rows bitwise equal, "
+              f"{COUNTED} launches {eager_launches} in both; eager train "
+              f"{1e3 * eager['seconds']['train'] / epochs:.6f} ms/epoch")
 
     # Reference: the same run on the CPU's plain path, first epochs.
     ref = run_experiment(cfg, data_dir=DATA_DIR, n_epochs=REF_EPOCHS, verbose=False,
@@ -1322,7 +1366,7 @@ def phase_tmgcn(torch, np, tk, e_train: int) -> tuple[int, int]:
     from tmgcn_torch.configs.presets import get_preset
 
     cfg = dataclasses.replace(get_preset("chess_tmgcn_cls"), spmm_impl="pallas")
-    return _run_slice(torch, np, tk, cfg, e_train, (3, 0, 0, 0, 0, 0, 0))
+    return _run_slice(torch, np, tk, cfg, e_train, (3, 0, 0, 0, 0, 0, 0), vs_eager=True)
 
 
 def phase_wdgcn_chess(torch, np, tk, e_train: int) -> dict[str, tuple[int, int]]:
@@ -1332,7 +1376,7 @@ def phase_wdgcn_chess(torch, np, tk, e_train: int) -> dict[str, tuple[int, int]]
     cfg = get_preset("chess_wdgcn_cls")
     check(cfg.spmm_impl == "jnp", "chess_wdgcn_cls is expected to name spmm_impl jnp")
     counts = {"chess_wdgcn_cls": _run_slice(torch, np, tk, cfg, e_train,
-                                            (EPOCHS, 0, 0, 0, 0, 0, 0))}
+                                            (EPOCHS, 0, 0, 0, 0, 0, 0), vs_eager=True)}
     # The CLI, with the CUDA propagation: 3 more K1 launches at set-up.
     argv = ["run", "chess_wdgcn_cls", "--data-dir", DATA_DIR, "--spmm-impl", "pallas",
             "--epochs", str(EPOCHS), "--quiet"]
@@ -1349,8 +1393,8 @@ def phase_wdgcn_chess(torch, np, tk, e_train: int) -> dict[str, tuple[int, int]]
     return counts
 
 
-def phase_wdgcn_scale(torch, np, tk, inputs, t_build: float) -> tuple[int, int]:
-    from tmgcn_torch.utils import scale_bench
+def phase_wdgcn_scale(torch, np, tk, inputs, t_build: float, card: str) -> tuple[int, int]:
+    from tmgcn_torch.utils import profile_slice, scale_bench
 
     out, launches = _counted(
         tk, lambda: scale_bench.run_family("wdgcn", inputs, SCALE_N_TIMED, DEVICE))
@@ -1367,18 +1411,53 @@ def phase_wdgcn_scale(torch, np, tk, inputs, t_build: float) -> tuple[int, int]:
           f"{SCALE['n_edges']} labelled edges, nnz_per_slice {SCALE['nnz_per_slice']} — cut from "
           f"2000000 to shorten the host build; only the set-up depends on it): host build "
           f"{t_build:.3f} s, adapter build {out['wdgcn_build_s']:.3f} s, first {steps // 2} steps "
-          f"{out['wdgcn_first_run_s']:.3f} s, {out['wdgcn_ms_per_epoch']:.6f} ms/epoch, "
+          f"(warm-up step and capture included) {out['wdgcn_first_run_s']:.3f} s, "
+          f"{out['wdgcn_ms_per_epoch']:.6f} ms/epoch, "
           f"{out['wdgcn_edges_per_s']:.1f} labelled edges/s; launches {launches} in "
-          f"{steps} steps; losses {losses.tolist()}")
-    print(f"WD-GCN scale traced warm, {traced['profiled_epochs']} steps (outside the counts): "
-          f"device {traced['device_ms_per_profiled_epoch']:.6f} ms per step, busy share "
+          f"{steps} steps; losses {losses.tolist()} [{card}]")
+    print(f"WD-GCN scale traced warm, {traced['profiled_epochs']} captured steps (outside the "
+          f"counts): device {traced['device_ms_per_profiled_epoch']:.6f} ms per step (the "
+          f"profiler's kernel time; CUDA events around the steps "
+          f"{traced['event_ms_per_profiled_epoch']:.6f}), busy share "
           f"{traced['device_busy_share']:.4f}, wall "
           f"{traced['profiled_wall_ms'] / traced['profiled_epochs']:.6f} ms per step, "
-          f"{traced['launch_calls_per_profiled_epoch']:.1f} launch calls per step; device ms by "
-          f"kernel (top 12, over the {traced['profiled_epochs']} steps) "
+          f"{traced['launch_calls_per_profiled_epoch']:.1f} kernel and "
+          f"{traced['graph_launches_per_profiled_epoch']:.1f} graph launch calls per step; device "
+          f"ms by kernel (top 12, over the {traced['profiled_epochs']} steps) "
           f"{json.dumps(traced['device_ms_by_kernel'])}; device ms per step of K2 and of the "
           f"operators that launch the readout backward's gather, copy and fill (every call of "
-          f"each) {json.dumps(traced['device_ms_per_step_named'])}")
+          f"each) {json.dumps(traced['device_ms_per_step_named'])} [{card}]")
+
+    # Captured against eager on the same adapter: the same losses, each
+    # side's peak device memory (eager first, so that no graph pool is
+    # held while it runs), then both timed in turns.
+    adapter = out.pop("adapter")
+    del out
+    gc.collect()
+    torch.cuda.empty_cache()
+    n = max(SCALE_N_TIMED // 4, 3)
+    runs, memory = {}, {}
+    for name, ctx in (("eager", _eager_loop), ("captured", contextlib.nullcontext)):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        with ctx():
+            _, _, side_losses, runs[name] = scale_bench.timed_epochs(
+                adapter, scale_bench.labelled_edges(inputs), inputs[5], n)
+        torch.cuda.synchronize()
+        memory[name] = {"peak_bytes": torch.cuda.max_memory_allocated(), "before_bytes": base,
+                        "after_bytes": torch.cuda.memory_allocated()}
+        check(np.array_equal(side_losses, losses),
+              f"WD-GCN scale: the {name} steps' losses {side_losses.tolist()} differ from the "
+              f"counted run's {losses.tolist()}")
+    print(f"WD-GCN scale captured vs eager, {2 * n} steps each from the same parameters: losses "
+          f"bitwise equal; peak device memory (torch.cuda.max_memory_allocated, adapter "
+          f"included) {json.dumps(memory)} [{card}]")
+    times = profile_slice.timed_chunks(runs, n)
+    _print_times("WD-GCN scale steps,", times, card, unit="step")
+    del runs, adapter
+    gc.collect()
+    torch.cuda.empty_cache()
     return launches
 
 
@@ -1427,10 +1506,7 @@ def phase_tmgcn2(torch, np, tk) -> dict[str, tuple]:
     counts = {}
     cfg = dataclasses.replace(base, spmm_impl="pallas")
     counts["chess_tmgcn2_cls pallas"] = _run_slice(
-        torch, np, tk, cfg, e_train, (k1_launches, 0, 0, 0, 0, 0, 0))
-    # Device time per epoch of the restricted operator as K1 and as
-    # block-dense (the preset's auto), traced as profile_slice traces it.
-    profiles = {impl: _device_profile(impl) for impl in ("pallas", "jnp")}
+        torch, np, tk, cfg, e_train, (k1_launches, 0, 0, 0, 0, 0, 0), vs_eager=True)
     cfg = dataclasses.replace(base, spmm_impl="pallas_bf16")
     counts["chess_tmgcn2_cls pallas_bf16"] = _run_slice(
         torch, np, tk, cfg, e_train, (0, k1_launches, 0, 0, 0, 0, 0), warm=False, rtol=BF16_RTOL)
@@ -1440,8 +1516,8 @@ def phase_tmgcn2(torch, np, tk) -> dict[str, tuple]:
         counts[f"chess_tmgcn2_cls {impl}"] = _run_slice(
             torch, np, tk, cfg, e_train, expected, epochs=REF_EPOCHS, warm=False, rtol=rtol)
     counts["chess_tmgcn2_cls preset (jnp: blockdense)"] = _run_slice(
-        torch, np, tk, base, e_train, (0, 0, 0, 0, 0, 0, 0))
-    return counts, profiles
+        torch, np, tk, base, e_train, (0, 0, 0, 0, 0, 0, 0), vs_eager=True)
+    return counts
 
 
 def phase_lp(torch, np, tk) -> dict[str, tuple]:
@@ -1461,7 +1537,8 @@ def phase_lp(torch, np, tk) -> dict[str, tuple]:
         torch, np, tk, base, e_train, (0, 0, 0, 0, 0, 0, 0), warm=False)
     wd = get_preset("chess_wdgcn_lp")
     check(wd.spmm_impl == "jnp", "chess_wdgcn_lp is expected to name spmm_impl jnp")
-    counts["chess_wdgcn_lp"] = _run_slice(torch, np, tk, wd, e_train, (EPOCHS, 0, 0, 0, 0, 0, 0))
+    counts["chess_wdgcn_lp"] = _run_slice(torch, np, tk, wd, e_train, (EPOCHS, 0, 0, 0, 0, 0, 0),
+                                          vs_eager=True)
     for name, same_block in (("chess_tmgcn_lp", True), ("chess_wdgcn_lp", False)):
         sec = _lp_eval_seconds(np, same_block)
         print(f"{name}: host scoring of one evaluation epoch {sum(sec.values()):.3f} s "
@@ -1470,23 +1547,54 @@ def phase_lp(torch, np, tk) -> dict[str, tuple]:
     return counts
 
 
-def _device_profile(impl: str) -> dict:
-    """chess_tmgcn2_cls with one spmm_impl: a warm-up run, then a traced
-    run of profile_slice's 21 epochs; device ms per epoch and busy share."""
+# The chess paths timed captured against eager: (preset, spmm_impl or
+# None for the preset's own).
+TIMED_PATHS = (("chess_tmgcn_cls", "pallas"), ("chess_tmgcn2_cls", "pallas"),
+               ("chess_tmgcn2_cls", "jnp"), ("chess_wdgcn_cls", None), ("chess_wdgcn_lp", None))
+
+
+def _print_times(what: str, times: dict, card: str, unit: str = "epoch") -> None:
+    for name, t in times.items():
+        print(f"{what} {name}: {t['median_ms']:.6f} ms per {unit} (median of {t['rounds']} "
+              f"rounds of {t['n_timed']}, {t['round_s']:.3f} s a round; best {t['best_ms']:.6f}, "
+              f"max {t['max_ms']:.6f}, "
+              f"spread {t['run_spread']:.4f}) [{card}]")
+
+
+def phase_capture_timing(torch, card: str) -> dict:
+    """Each chess path's plain epochs, captured (as the loop runs them) and
+    eager (the loop's reference chunks), timed in turns in this process as
+    bench.py times a chunk (profile_slice.timed_chunks); then a warm captured
+    chunk traced as profile_slice traces it: device ms per epoch and the
+    device's busy share. Returns {path: {"times", "trace"}}."""
     from tmgcn_torch.utils import profile_slice
 
-    _, run = profile_slice.build_runner("chess_tmgcn2_cls", impl)
+    out = {}
     n = profile_slice.TRACED_EPOCHS
-    run(n)  # this adapter's first launches
-    traced, _ = profile_slice.trace(lambda: run(n, eval_every=n), n)
-    check(traced["device_ms_per_profiled_epoch"] > 0,
-          f"chess_tmgcn2_cls ({impl}): the trace shows no device time")
-    print(f"chess_tmgcn2_cls ({impl}) traced warm, {traced['profiled_epochs']} epochs: "
-          f"device {traced['device_ms_per_profiled_epoch']:.6f} ms per epoch, busy share "
-          f"{traced['device_busy_share']:.4f}, wall {traced['profiled_wall_ms'] / traced['profiled_epochs']:.6f} "
-          f"ms per epoch, {traced['launch_calls_per_profiled_epoch']:.1f} launch calls per epoch; "
-          f"device ms by kernel {json.dumps(traced['device_ms_by_kernel'])}")
-    return traced
+    for preset, impl in TIMED_PATHS:
+        cfg, _, make_chunk = profile_slice.build_runner(preset, impl)
+        path = f"{preset} ({cfg.spmm_impl})"
+        times = profile_slice.timed_chunks({"captured": make_chunk(),
+                                            "eager": make_chunk(eager=True)}, n)
+        _print_times(f"{path} plain epochs,", times, card)
+        chunk = make_chunk()
+        chunk(n).cpu()  # the warm-up step and the capture
+        traced, _ = profile_slice.trace(lambda: chunk(n).cpu(), n)
+        check(traced["device_ms_per_profiled_epoch"] > 0, f"{path}: the trace shows no device time")
+        print(f"{path} traced, {n} captured plain epochs: device "
+              f"{traced['device_ms_per_profiled_epoch']:.6f} ms per epoch (the profiler's "
+              f"kernel time; CUDA events around the chunk "
+              f"{traced['event_ms_per_profiled_epoch']:.6f}), busy share "
+              f"{traced['device_busy_share']:.4f}, wall "
+              f"{traced['profiled_wall_ms'] / n:.6f} ms per epoch, "
+              f"{traced['launch_calls_per_profiled_epoch']:.1f} kernel and "
+              f"{traced['graph_launches_per_profiled_epoch']:.1f} graph launch calls per epoch; "
+              f"device ms by kernel {json.dumps(traced['device_ms_by_kernel'])} [{card}]")
+        out[path] = {"times": times, "trace": traced}
+        del chunk, make_chunk
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
 
 
 def main() -> int:
@@ -1504,7 +1612,7 @@ def main() -> int:
     check("jax" not in sys.modules, "jax was imported")
 
     t_start = time.perf_counter()
-    phase_card()
+    card = phase_card()
     phase_build()
     k1, e_train = phase_k1(torch, np)
     k1["lp_readout_backward"], lp_err = phase_k1_lp(torch, np)
@@ -1523,11 +1631,12 @@ def main() -> int:
     print(f"fast-tier phase: {time.perf_counter() - t0:.3f} s")
     by_path = {"chess_tmgcn_cls pallas": phase_tmgcn(torch, np, tk, e_train)}
     by_path.update(phase_wdgcn_chess(torch, np, tk, e_train))
-    by_path["wdgcn scale 500k x 64"] = phase_wdgcn_scale(torch, np, tk, inputs, t_scale_build)
-    tmgcn2_counts, profiles = phase_tmgcn2(torch, np, tk)
-    by_path.update(tmgcn2_counts)
+    by_path["wdgcn scale 500k x 64"] = phase_wdgcn_scale(torch, np, tk, inputs, t_scale_build,
+                                                         card)
+    by_path.update(phase_tmgcn2(torch, np, tk))
     by_path.update(phase_lp(torch, np, tk))
     by_path.update(fast_counts)
+    profiles = phase_capture_timing(torch, card)
     check("jax" not in sys.modules and "tmgcn_tpu" not in sys.modules,
           "the JAX package was imported")
     kernels = (k1, k1_bf16, k2, k3, k3_bf16, k1_fast, k3_fast)
@@ -1537,8 +1646,8 @@ def main() -> int:
         check(k["launches"] > 0, f"{k['name']} was launched no time on the main paths")
     print(f"restricted operator times (chess_tmgcn2_cls train window): "
           f"{json.dumps(restricted['operators'])}")
-    print("restricted operator device ms per epoch (traced chess_tmgcn2_cls): " + json.dumps(
-        {impl: p["device_ms_per_profiled_epoch"] for impl, p in profiles.items()}))
+    print("device ms per captured plain epoch (traced): " + json.dumps(
+        {path: p["trace"]["device_ms_per_profiled_epoch"] for path, p in profiles.items()}))
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
     extra = ("shape", "launches_by_path", "train_window", "lp_readout_backward", "restricted_forward",

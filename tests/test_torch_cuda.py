@@ -10,6 +10,10 @@ Tolerance 1e-5 · max(1, |reference|): float32 sums taken in another order
 (the plain version's index_add_ uses atomics on the card). The bf16 and
 fast tiers take the same tolerance: the plain versions round each product
 to bf16 as the kernels do, so only the order of the float32 sums differs.
+
+The training loop on the card replays one captured CUDA graph a step; its
+cases here hold the rows bitwise against the loop's eager steps on the
+same card (same kernels, same order), with the same launch counts.
 """
 
 import numpy as np
@@ -433,20 +437,15 @@ LP_CASES = {"tmgcn1_pallas": ("tmgcn", "pallas", 3), "wdgcn_jnp": ("wdgcn", "jnp
             "tmgcn2_pallas": ("tmgcn2", "pallas", 3 + 2 * 4 + 4)}
 
 
-@pytest.mark.parametrize("case", sorted(LP_CASES))
-def test_link_prediction_on_the_card(cuda_device, case):
-    """run_link_prediction on the card against the CPU's plain path: K1 as
-    often as the path needs, the same (epochs, 9) rows (losses rtol 1e-4,
-    MAP and MRR rtol 1e-3), a repeated run bitwise equal."""
+def _lp_problem(family: str, impl: str):
+    """(model, M, adj, feats, model edges, splits) of a small link-prediction
+    task: 12 slices of 300 nodes, windows of 8/2/2 slices."""
     from tmgcn_torch.core.mmatrix import make_m_matrix
     from tmgcn_torch.models.tmgcn import TMGCN, TMGCN2
     from tmgcn_torch.models.wdgcn import WDGCN
-    from tmgcn_torch.tasks.adapters import make_edge_adapter
     from tmgcn_torch.tasks.sampling import augment_edges
     from tmgcn_torch.tasks.windows import WindowSpec, split_data_link_prediction
-    from tmgcn_torch.train.loop import TrainConfig, run_link_prediction
 
-    family, impl, k1_launches = LP_CASES[case]
     rng = np.random.default_rng(7)
     T_all, N, E = 12, 300, 2400
     spec = WindowSpec(8, 2, 2, same_block_size=family != "wdgcn")
@@ -467,6 +466,19 @@ def test_link_prediction_on_the_card(cuda_device, case):
         model, M = TMGCN(hidden_feat=(6, 2), **kw), make_m_matrix(8, 3)
     else:
         model, M = TMGCN2(hidden_feat=(6, 6, 2), nonlin2="selu", **kw), make_m_matrix(8, 3)
+    return model, M, adj, feats, edges, splits
+
+
+@pytest.mark.parametrize("case", sorted(LP_CASES))
+def test_link_prediction_on_the_card(cuda_device, case):
+    """run_link_prediction on the card against the CPU's plain path: K1 as
+    often as the path needs, the same (epochs, 9) rows (losses rtol 1e-4,
+    MAP and MRR rtol 1e-3), a repeated run bitwise equal."""
+    from tmgcn_torch.tasks.adapters import make_edge_adapter
+    from tmgcn_torch.train.loop import TrainConfig, run_link_prediction
+
+    family, impl, k1_launches = LP_CASES[case]
+    model, M, adj, feats, edges, splits = _lp_problem(family, impl)
     variables = model.init(torch.Generator().manual_seed(0))
     cfg = TrainConfig(n_epochs=4, eval_every=3)
 
@@ -486,3 +498,127 @@ def test_link_prediction_on_the_card(cuda_device, case):
     rates = [0, 1, 3, 4, 6, 7]
     np.testing.assert_array_equal(np.isnan(on_card[:, rates]), np.isnan(ref[:, rates]))
     np.testing.assert_allclose(on_card[:, rates], ref[:, rates], rtol=1e-3)
+
+
+# Every kernel tier's launch count, (wrapper, counter).
+COUNTERS = [(w, c) for w in (tk.windowed_segment_matmul, tk.windowed_tiled_segment_matmul)
+            for c in ("launches", "launches_bf16", "launches_fast")]
+COUNTERS.append((tk.windowed_segment_matmul_t, "launches"))
+
+
+def _launches() -> list[int]:
+    return [getattr(w, c) for w, c in COUNTERS]
+
+
+def _cls_problem(family: str, impl: str):
+    """(model, M, adj, feats, edges, splits) of a small 3-class edge task:
+    6 slices of 400 nodes, one graph for the three windows."""
+    import types
+
+    from tmgcn_torch.core.mmatrix import make_m_matrix
+    from tmgcn_torch.models.tmgcn import TMGCN, TMGCN2
+    from tmgcn_torch.models.wdgcn import WDGCN
+
+    rng = np.random.default_rng(9)
+    T, N, E = 6, 400, 600
+    dense = (rng.random((T, N, N)) < 0.02) * rng.random((T, N, N))
+    adj = {w: TemporalCOO.from_dense(dense, pad_multiple=16) for w in ("train", "val", "test")}
+    feats = {w: rng.standard_normal((T, N, 2)).astype(np.float32) for w in adj}
+    splits = {w: types.SimpleNamespace(
+        edges=np.stack([np.sort(rng.integers(0, T, E)), rng.integers(0, N, E),
+                        rng.integers(0, N, E)]),
+        target=rng.integers(0, 3, E), eval_mask=np.ones(E, bool)) for w in adj}
+    edges = {w: s.edges for w, s in splits.items()}
+    kw = dict(n_slices=T, in_feat=2, spmm_impl=impl)
+    if family == "wdgcn":
+        return WDGCN(hidden_feat=(6, 3), **kw), None, adj, feats, edges, splits
+    if family == "tmgcn":
+        return TMGCN(hidden_feat=(6, 3), **kw), make_m_matrix(T, 3), adj, feats, edges, splits
+    return (TMGCN2(hidden_feat=(6, 6, 3), nonlin2="selu", **kw), make_m_matrix(T, 3), adj,
+            feats, edges, splits)
+
+
+# (task, family, spmm_impl)
+CAPTURE_CASES = {
+    "cls_tmgcn1_pallas": ("cls", "tmgcn", "pallas"),
+    "cls_tmgcn2_pallas": ("cls", "tmgcn2", "pallas"),
+    "cls_wdgcn_jnp": ("cls", "wdgcn", "jnp"),
+    "lp_wdgcn_jnp": ("lp", "wdgcn", "jnp"),
+}
+
+
+@pytest.mark.parametrize("optimizer", ["sgd", "adam"])
+@pytest.mark.parametrize("case", sorted(CAPTURE_CASES))
+def test_captured_rows_match_eager(cuda_device, case, optimizer, monkeypatch):
+    """7 epochs, eval_every 3, on the card: the loop as it runs (each step a
+    replay of one captured graph) against its eager chunks — the rows
+    bitwise equal, every kernel tier launched as often. Adam with
+    grad_clip=1.0 reads its step count from the device."""
+    from tmgcn_torch.tasks.adapters import make_edge_adapter
+    from tmgcn_torch.train import loop
+
+    task, family, impl = CAPTURE_CASES[case]
+    problem = _lp_problem if task == "lp" else _cls_problem
+    model, M, adj, feats, edges, splits = problem(family, impl)
+    variables = model.init(torch.Generator().manual_seed(0))
+    opt = {"optimizer": "adam", "grad_clip": 1.0} if optimizer == "adam" else {}
+    cfg = loop.TrainConfig(n_epochs=7, eval_every=3, **opt)
+
+    def run():
+        ad = make_edge_adapter(model, adj, feats, edges, M=M, drop_last_slice=task == "lp",
+                               device=cuda_device)
+        before = _launches()
+        if task == "lp":
+            res, _ = loop.run_link_prediction(ad, splits, np.array([0.9, 0.1]), cfg,
+                                              variables=variables)
+        else:
+            res, _ = loop.run_edge_classification(ad, splits, np.array([0.2, 0.5, 0.3]), cfg,
+                                                  variables=variables)
+        return res, [a - b for a, b in zip(_launches(), before)]
+
+    captured, n_captured = run()
+    monkeypatch.setattr(loop, "_chunks", loop._EagerChunks)
+    eager, n_eager = run()
+    assert captured.shape[0] == 7 and np.all(np.isfinite(captured[:, 3 if task == "cls" else 2]))
+    np.testing.assert_array_equal(captured, eager)
+    assert n_captured == n_eager
+
+
+def test_chunks_replay_one_captured_step(cuda_device):
+    """On the card a chunk is the warm-up step, the capture, then replays:
+    K1 counts its launches as they run (2 a step in the restricted 2-layer
+    TM-GCN: layer 2 forward and backward), none for the capture."""
+    from tmgcn_torch.tasks.adapters import make_edge_adapter
+    from tmgcn_torch.train import loop
+
+    model, M, adj, feats, edges, splits = _cls_problem("tmgcn2", "pallas")
+    ad = make_edge_adapter(model, adj, feats, edges, M=M, device=cuda_device)
+    chunks, _, _ = loop.train_chunks(ad, splits["train"], np.ones(3) / 3, loop.TrainConfig(),
+                                     capacity=8)
+    assert type(chunks) is loop._CapturedChunks and chunks.graph is None
+    before = tk.windowed_segment_matmul.launches
+    chunks(1)
+    assert chunks.graph is not None and tk.windowed_segment_matmul.launches - before == 2
+    assert len(chunks.launches.launches) == 2
+    chunks(3)
+    assert tk.windowed_segment_matmul.launches - before == 8
+    stats = chunks.stats(4).cpu()
+    assert stats.shape == (4, 4) and torch.isfinite(stats).all()
+    assert len(torch.unique(stats[:, 0])) == 4  # four steps, four losses
+
+
+def test_a_host_sync_in_the_step_raises(cuda_device):
+    """A step that reads the card from the host fails loudly, naming the
+    operation, before anything is captured; nothing falls back."""
+    from tmgcn_torch.train import loop
+
+    x = torch.ones(4, device=cuda_device)
+
+    def step():
+        return x.sum().item()
+
+    step.device = cuda_device
+    chunks = loop._CapturedChunks(step)
+    with pytest.raises(RuntimeError, match="synchroniz"):
+        chunks(2)
+    assert chunks.graph is None

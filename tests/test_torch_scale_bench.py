@@ -75,3 +75,14 @@ def test_run_family_runs_more_steps_from_where_it_ended():
     again = scale_bench.run_family("wdgcn", inputs, 4, "cpu")
     np.testing.assert_array_equal(again["losses"], out["losses"])
     assert not np.array_equal(more, out["losses"][:2])  # later steps, not a restart
+
+
+def test_run_takes_more_steps_than_its_stats_ring(monkeypatch):
+    """``run(n)`` past the ring of stats rows runs in chunks of the ring's
+    size and still returns every step's loss: the same as one chunk."""
+    inputs = scale_bench.build_inputs(300, 3, 800, 200, 3)
+    whole = scale_bench.run_family("tmgcn1", inputs, 2, "cpu")["run"](5).numpy()
+    monkeypatch.setattr(scale_bench, "STATS_ROWS", 2)  # the ring: max(2 steps, 2) rows
+    pieces = scale_bench.run_family("tmgcn1", inputs, 2, "cpu")["run"](5).numpy()
+    assert pieces.shape == (5,) and np.all(np.isfinite(pieces))
+    np.testing.assert_array_equal(pieces, whole)

@@ -195,9 +195,7 @@ def _quadratic_steps(opt_name, grad_clip, n_steps=5):
         g = jax.grad(lambda p: loss_np(p["W"], p["U"], jnp))(jp)
         upd, state = jopt.update(g, state, jp)
         jp = optax.apply_updates(jp, upd)
-        topt.zero_grad()
-        loss_np(tp["W"], tp["U"], torch).backward()
-        topt.step()
+        topt.step(torch.autograd.grad(loss_np(tp["W"], tp["U"], torch), list(tp.values())))
     return tp, jp
 
 
@@ -223,10 +221,10 @@ def test_optimizer_matches_torch_optim(opt_name):
     ref_opt = (torch.optim.SGD([ref], lr=0.01, momentum=0.9) if opt_name == "sgd"
                else torch.optim.Adam([ref], lr=0.01))
     for _ in range(6):
-        for w, o in ((ours, opt), (ref, ref_opt)):
-            o.zero_grad()
-            ((w - torch.from_numpy(target)) ** 2).sum().backward()
-            o.step()
+        opt.step(torch.autograd.grad(((ours - torch.from_numpy(target)) ** 2).sum(), [ours]))
+        ref_opt.zero_grad()
+        ((ref - torch.from_numpy(target)) ** 2).sum().backward()
+        ref_opt.step()
     np.testing.assert_allclose(ours.detach().numpy(), ref.detach().numpy(), rtol=1e-12, atol=1e-12)
 
 

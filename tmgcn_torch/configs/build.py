@@ -28,7 +28,7 @@ from tmgcn_torch.ops.degree import degree_features_np
 from tmgcn_torch.preprocess import datasets as dsets
 from tmgcn_torch.preprocess.matio import load_artifact, save_artifact
 from tmgcn_torch.preprocess.pipeline import preprocess
-from tmgcn_torch.tasks.adapters import make_edge_adapter
+from tmgcn_torch.tasks.adapters import ModelAdapter, make_edge_adapter
 from tmgcn_torch.tasks.sampling import augment_edges
 from tmgcn_torch.tasks.windows import (
     WindowSpec,
@@ -36,7 +36,12 @@ from tmgcn_torch.tasks.windows import (
     split_edges_classification,
     window_features,
 )
-from tmgcn_torch.train.loop import TrainConfig, run_edge_classification, run_link_prediction
+from tmgcn_torch.train.loop import (
+    TrainConfig,
+    run_edge_classification,
+    run_link_prediction,
+    train_chunks,
+)
 
 WINDOWS = ("train", "val", "test")
 
@@ -236,6 +241,109 @@ def run_tag(trial: int, alpha: float | None) -> str:
     return f"tr{trial}" + (f"_w{round((alpha or 0) * 100)}" if alpha else "")
 
 
+@dataclasses.dataclass(frozen=True)
+class Experiment:
+    """One config built on its device: the data, the windows' splits and the
+    adapter (bundles packed and moved, cached propagation done), with the
+    host seconds of the data and the adapter builds."""
+
+    cfg: ExperimentConfig
+    data: ExperimentData
+    splits: dict
+    adapter: ModelAdapter
+    seconds: dict
+
+    @property
+    def link_pred(self) -> bool:
+        return self.cfg.task == "link_pred"
+
+
+def build_experiment(
+    cfg: ExperimentConfig,
+    data_dir: str | Path | None = None,
+    artifact: str | Path | None = None,
+    device: str | torch.device | None = None,
+) -> Experiment:
+    """The data, splits and adapter of one config, on ``device`` (cuda
+    unless told otherwise)."""
+    device = resolve_device(device)
+    _check_ported(cfg)  # before the data build
+    t0 = time.perf_counter()
+    data = build_data(cfg, data_dir=data_dir, artifact=artifact)
+    t_data = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    in_feat = data.feats["train"].shape[-1]
+    link_pred = cfg.task == "link_pred"
+    if link_pred:
+        # The model consumes slices [0, S-1) and predicts the edges of [1, S).
+        splits = split_data_link_prediction(data.lp_edges, data.lp_labels, data.spec)
+        model_edges = {w: splits[w].model_edges for w in WINDOWS}
+        model = build_model(cfg, data.spec.s_train - 1, in_feat)
+    else:
+        splits = split_edges_classification(
+            data.edge_index, data.edge_values, data.spec, n_classes=cfg.n_classes
+        )
+        model_edges = {w: splits[w].edges for w in WINDOWS}
+        model = build_model(cfg, data.spec.s_train, in_feat)
+    adapter = make_edge_adapter(
+        model, data.adj, data.feats, model_edges,
+        M=data.M if cfg.method == "tmgcn" else None, drop_last_slice=link_pred, device=device,
+    )
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    t_adapter = time.perf_counter() - t0
+    return Experiment(cfg, data, splits, adapter, {"data": t_data, "adapter": t_adapter})
+
+
+def class_weights(cfg: ExperimentConfig, alpha: float) -> np.ndarray:
+    """The loss's class weights of one alpha: [alpha, 1 - alpha], or equal
+    weights for 3-class edge classification."""
+    if cfg.task != "link_pred" and cfg.n_classes == 3:
+        return np.array([1 / 3, 1 / 3, 1 / 3])
+    return np.array([alpha, 1.0 - alpha])
+
+
+def train_config(cfg: ExperimentConfig, n_epochs: int | None = None,
+                 verbose: bool = False) -> TrainConfig:
+    """The loop's settings of a config (its own n_epochs unless given)."""
+    return TrainConfig(
+        n_epochs=n_epochs if n_epochs is not None else cfg.n_epochs,
+        lr=cfg.lr,
+        momentum=cfg.momentum,
+        eval_every=cfg.eval_every,
+        verbose=verbose,
+        optimizer=cfg.optimizer,
+        grad_clip=cfg.grad_clip,
+    )
+
+
+def run_trial(exp: Experiment, tcfg: TrainConfig, alpha: float,
+              generator: torch.Generator) -> np.ndarray:
+    """One training run of the experiment's task at one alpha; its rows."""
+    cw = class_weights(exp.cfg, alpha)
+    if exp.link_pred:
+        res, _ = run_link_prediction(
+            exp.adapter, exp.splits, cw, tcfg, generator=generator,
+            loss_type=exp.cfg.loss_type, eval_type=exp.cfg.eval_type,
+        )
+    else:
+        res, _ = run_edge_classification(exp.adapter, exp.splits, cw, tcfg, generator=generator)
+    return res
+
+
+def trial_chunks(exp: Experiment, tcfg: TrainConfig, alpha: float,
+                 generator: torch.Generator, capacity: int | None = None):
+    """The chunk runner of the step that ``run_trial`` trains, from the
+    same parameters (``train.loop.train_chunks``'s ``chunks``), for timing
+    plain epochs alone."""
+    lp = {"loss_type": exp.cfg.loss_type} if exp.link_pred else {}
+    chunks, _, _ = train_chunks(exp.adapter, exp.splits["train"], class_weights(exp.cfg, alpha),
+                                tcfg, task=exp.cfg.task, generator=generator, capacity=capacity,
+                                **lp)
+    return chunks
+
+
 def run_experiment(
     cfg: ExperimentConfig,
     data_dir: str | Path | None = None,
@@ -261,64 +369,19 @@ def run_experiment(
         raise NotImplementedError("checkpoints are not ported yet (ROADMAP queue 1, item 13)")
     if mesh_shape is not None:
         raise NotImplementedError("multi-device runs are not ported yet (ROADMAP queue 1, item 14)")
-    _check_ported(cfg)  # before the data build
-    t0 = time.perf_counter()
-    data = build_data(cfg, data_dir=data_dir, artifact=artifact)
-    t_data = time.perf_counter() - t0
-    n_epochs = n_epochs if n_epochs is not None else cfg.n_epochs
+    exp = build_experiment(cfg, data_dir, artifact, device)
+    tcfg = train_config(cfg, n_epochs, verbose)
     alphas = alpha_vec if alpha_vec is not None else cfg.alpha_vec
-    tcfg = TrainConfig(
-        n_epochs=n_epochs,
-        lr=cfg.lr,
-        momentum=cfg.momentum,
-        eval_every=cfg.eval_every,
-        verbose=verbose,
-        optimizer=cfg.optimizer,
-        grad_clip=cfg.grad_clip,
-    )
-
-    t0 = time.perf_counter()
-    in_feat = data.feats["train"].shape[-1]
-    link_pred = cfg.task == "link_pred"
-    if link_pred:
-        # The model consumes slices [0, S-1) and predicts the edges of [1, S).
-        splits = split_data_link_prediction(data.lp_edges, data.lp_labels, data.spec)
-        model_edges = {w: splits[w].model_edges for w in WINDOWS}
-        model = build_model(cfg, data.spec.s_train - 1, in_feat)
-    else:
-        splits = split_edges_classification(
-            data.edge_index, data.edge_values, data.spec, n_classes=cfg.n_classes
-        )
-        model_edges = {w: splits[w].edges for w in WINDOWS}
-        model = build_model(cfg, data.spec.s_train, in_feat)
-    adapter = make_edge_adapter(
-        model, data.adj, data.feats, model_edges,
-        M=data.M if cfg.method == "tmgcn" else None, drop_last_slice=link_pred, device=device,
-    )
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
-    t_adapter = time.perf_counter() - t0
 
     t0 = time.perf_counter()
     generator = torch.Generator().manual_seed(cfg.seed)
     results: dict = {}
     for tr in range(cfg.n_trials):
         for alpha in alphas:
-            if link_pred:
-                res, _ = run_link_prediction(
-                    adapter, splits, np.array([alpha, 1.0 - alpha]), tcfg, generator=generator,
-                    loss_type=cfg.loss_type, eval_type=cfg.eval_type,
-                )
-            else:
-                if cfg.n_classes == 3:
-                    cw = np.array([1 / 3, 1 / 3, 1 / 3])
-                else:
-                    cw = np.array([alpha, 1.0 - alpha])
-                res, _ = run_edge_classification(adapter, splits, cw, tcfg, generator=generator)
-            results[(tr, alpha)] = res
+            results[(tr, alpha)] = run_trial(exp, tcfg, alpha, generator)
     t_train = time.perf_counter() - t0
     return {
         "results": results,
-        "spec": data.spec,
-        "seconds": {"data": t_data, "adapter": t_adapter, "train": t_train},
+        "spec": exp.data.spec,
+        "seconds": {**exp.seconds, "train": t_train},
     }

@@ -50,12 +50,16 @@ features cast to bf16.
 
 Every kernel wrapper launches its kernel for a CUDA tensor and raises where
 it cannot; it takes its plain PyTorch version (``*_reference``) only for a
-tensor on the CPU. The operators' ``torch.autograd.Function`` runs the
+tensor on the CPU. Each tier's launch count (``.launches`` and the like on
+the wrapper) counts the kernels that ran: under a CUDA graph capture a call
+counts nothing, and each replay adds the launches the capture recorded
+(``LaunchLog``). The operators' ``torch.autograd.Function`` runs the
 backward dX = Aᵀ dY as the same kernel on the transposed packing.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import dataclasses
 import functools
@@ -570,8 +574,9 @@ def _launch_rows(
 ) -> torch.Tensor:
     """Check the arguments of K1, K2 (``lane_major``: (J, F, C) in, (F,
     n_rows_out) out) or K3 (by the packing's type) and launch it on the
-    current stream: one launch over the packing's row index, which adds
-    one to ``counter`` (the wrapper and the name of its tier's count)."""
+    current stream: one launch over the packing's row index, counted in
+    ``counter`` (the wrapper and the name of its tier's count) by
+    ``count_launch``."""
     device = gathered.device
     F = gathered.shape[1 if lane_major else -1]
     _check_cuda("gathered", gathered, gathered.dtype, device)
@@ -600,9 +605,60 @@ def _launch_rows(
         )
     if err != 0:
         raise RuntimeError(f"{symbol} launch failed: CUDA error {err}")
-    wrapper, name = counter
-    setattr(wrapper, name, getattr(wrapper, name) + 1)
+    count_launch(counter, torch.cuda.is_current_stream_capturing())
     return out
+
+
+class LaunchLog:
+    """The kernel launches that one CUDA graph capture recorded.
+
+    A capture runs the wrappers' Python once and launches nothing: the
+    launches happen at each replay of the graph, where no Python runs. So
+    inside ``recording()`` a wrapper called under capture files its launch
+    here instead of counting it, and ``replayed(n)`` adds the recorded
+    launches to the counts once for each of n replays.
+    """
+
+    def __init__(self):
+        self.launches: list[tuple[object, str]] = []
+
+    @contextlib.contextmanager
+    def recording(self):
+        global _RECORDING
+        if _RECORDING is not None:
+            raise RuntimeError("a launch log is already recording")
+        _RECORDING = self
+        try:
+            yield self
+        finally:
+            _RECORDING = None
+
+    def replayed(self, n: int = 1) -> None:
+        for wrapper, name in self.launches:
+            setattr(wrapper, name, getattr(wrapper, name) + n)
+
+
+# The log of the capture in progress. A capture holds the whole process
+# (torch.cuda.graph's default error mode), so one slot is enough.
+_RECORDING: LaunchLog | None = None
+
+
+def count_launch(counter: tuple[object, str], capturing: bool) -> None:
+    """The launch-accounting rule: an eager launch adds one to ``counter``
+    (the wrapper and the name of its tier's count); a launch recorded by a
+    capture counts 0 here and is added by ``LaunchLog.replayed`` at each
+    replay. A capture outside ``LaunchLog.recording`` raises: its replays
+    would launch kernels that no count sees."""
+    if not capturing:
+        wrapper, name = counter
+        setattr(wrapper, name, getattr(wrapper, name) + 1)
+        return
+    if _RECORDING is None:
+        raise RuntimeError(
+            f"{counter[1]} of {counter[0].__name__} was captured into a CUDA graph outside "
+            "LaunchLog.recording(): its replays would not be counted"
+        )
+    _RECORDING.launches.append(counter)
 
 
 def _tier(gathered: torch.Tensor, fast: bool) -> str:

@@ -105,7 +105,9 @@ def _lstm_scan_remat(p: dict, h0, c0, Yt: torch.Tensor) -> torch.Tensor:
     Each step runs under ``torch.utils.checkpoint``, so the backward
     recomputes its gate pre-activations instead of keeping a (T, 4, F, N)
     stack alive. The same per-gate dot lengths as ``_lstm_scan_pre``
-    (Wᵀy + b first, + Uᵀh second).
+    (Wᵀy + b first, + Uᵀh second). The step draws no random numbers, so
+    the checkpoint keeps no RNG state (``preserve_rng_state=False``): that
+    would read the CUDA generator's state, which a graph capture refuses.
     """
     W = torch.cat([p[f"W{g}"].to(Yt.dtype) for g in _GATES], dim=1)  # (F, 4F)
     U = _recurrent_weights(p)
@@ -113,7 +115,8 @@ def _lstm_scan_remat(p: dict, h0, c0, Yt: torch.Tensor) -> torch.Tensor:
     h, c = _initial_state(h0, c0, Yt.shape[-1])
     Z = []
     for y in Yt.unbind(0):
-        h, c = checkpoint(_remat_step, W, U, b, y, h, c, use_reentrant=False)
+        h, c = checkpoint(_remat_step, W, U, b, y, h, c, use_reentrant=False,
+                          preserve_rng_state=False)
         Z.append(h)
     return torch.stack(Z)
 

@@ -14,15 +14,23 @@ steps. The per-epoch loss and confusion counts stay on the device and are
 fetched once per chunk of plain steps. Matmuls run in full float32 with
 TF32 off — the port's form of the JAX package's HIGHEST-precision
 training contract.
+
+On a card every epoch's step is one CUDA graph, captured once and replayed
+— the port of the JAX package's ``chunk_step`` (a ``lax.scan`` of steps in
+one device call): a chunk of k plain epochs is k replays with no kernel
+issued from Python between them, and evaluation epochs replay the same
+graph. There is no switch: on the CPU the same step runs eagerly.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 
 import numpy as np
 import torch
 
+from tmgcn_torch.kernels import spmm_cuda
 from tmgcn_torch.tasks import metrics as M
 from tmgcn_torch.tasks.adapters import ModelAdapter
 from tmgcn_torch.tasks.windows import EdgeSplit, LinkPredSplit
@@ -43,7 +51,11 @@ class TrainConfig:
 class _Optimizer:
     """optax's sgd(lr, momentum) or adam(lr), after clip_by_global_norm
     when ``grad_clip`` is set, written out with tensor ops in optax's
-    arithmetic order.
+    arithmetic order. ``step(grads)`` updates the parameters and the state
+    in place, reading nothing on the host: Adam's step count is a float64
+    tensor beside the parameters, so a replayed step reads its own epoch's
+    count, and its bias corrections 1 - decay**count are taken in float64
+    and divided in the moments' type, as optax takes them.
 
     Not torch.optim: constructing one imports torch._dynamo, which costs
     seconds of start-up in every process. torch's SGD with momentum
@@ -56,17 +68,13 @@ class _Optimizer:
         self.cfg = cfg
         self.params = params
         self.mu = [torch.zeros_like(p) for p in params]  # sgd: the trace
-        self.nu = [torch.zeros_like(p) for p in params] if cfg.optimizer == "adam" else []
-        self.count = 0
-
-    def zero_grad(self) -> None:
-        for p in self.params:
-            p.grad = None
+        adam = cfg.optimizer == "adam"
+        self.nu = [torch.zeros_like(p) for p in params] if adam else []
+        self.count = torch.zeros((), dtype=torch.float64, device=params[0].device) if adam else None
 
     @torch.no_grad()
-    def step(self) -> None:
+    def step(self, grads: list[torch.Tensor]) -> None:
         cfg = self.cfg
-        grads = [p.grad for p in self.params]
         if cfg.grad_clip is not None:
             grads = _clip_by_global_norm(grads, cfg.grad_clip)
         if cfg.optimizer == "sgd":
@@ -75,12 +83,13 @@ class _Optimizer:
                 p.add_(t, alpha=-cfg.lr)
             return
         b1, b2, eps = 0.9, 0.999, 1e-8  # optax.adam's defaults
-        self.count += 1
+        self.count.add_(1)
+        bc1, bc2 = 1 - b1**self.count, 1 - b2**self.count
         for p, g, m, v in zip(self.params, grads, self.mu, self.nu):
             m.copy_((1 - b1) * g + b1 * m)
             v.copy_((1 - b2) * g**2 + b2 * v)
-            m_hat = m / (1 - b1**self.count)
-            v_hat = v / (1 - b2**self.count)
+            m_hat = m / bc1.to(m.dtype)
+            v_hat = v / bc2.to(v.dtype)
             p.add_(-cfg.lr * (m_hat / (torch.sqrt(v_hat) + eps)))
 
 
@@ -156,50 +165,211 @@ def _prepare(
     return params, buffers, _optimizer(cfg, _tree_leaves(params))
 
 
-def _make_steps(
-    adapter: ModelAdapter,
-    params: dict,
-    buffers: dict,
-    opt: _Optimizer,
-    class_weights: np.ndarray,
-    target: np.ndarray,
-    with_confusion: bool,
-    logit_transform=None,
-):
-    """(sgd_step, eval_forward) over the adapter's bundles, as the JAX
-    package's ``_make_steps`` builds them for both tasks; ``target`` is the
-    train bundle's labels, one per output row.
+class _Step:
+    """One SGD step on the train bundle, written so that a CUDA graph can
+    hold it: the JAX package's ``sgd_step`` and the confusion counts of its
+    ``chunk_step`` body.
 
-    ``sgd_step()`` makes one update on the train bundle and returns
-    (stats, out, carry): ``stats`` is [loss] (and tp, fp, fn with
-    ``with_confusion``) of the pre-update logits, one float64 tensor left on
-    the device; ``out`` those logits after ``logit_transform``, detached.
-    ``eval_forward(window, carry)`` is the window's forward without grad.
+    A call runs the forward, the weighted loss, the backward
+    (``torch.autograd.grad``: the gradients are the step's own tensors, with
+    no ``.grad`` to zero or free) and the optimizer's update in place; writes
+    the step's stats — [loss] (and tp, fp, fn with ``with_confusion``) of the
+    pre-update logits, float64 — into row ``slot`` of ``stats``, a ring of
+    ``capacity`` rows on the device, and advances ``slot``; and returns (out,
+    carry): those logits after ``logit_transform``, detached, and the
+    adapter's carry. Nothing in it reads the device from the host or keeps
+    state in Python, so each replay of its capture is the next epoch.
     """
-    variables = {"params": params, "buffers": buffers}
-    bundle_train = adapter.bundles["train"]
-    cw = torch.as_tensor(class_weights, dtype=torch.float64, device=adapter.device)
-    tgt = torch.as_tensor(target, device=adapter.device)
 
-    def sgd_step() -> tuple[torch.Tensor, torch.Tensor, object]:
-        opt.zero_grad()
-        out, carry = adapter.apply(variables, bundle_train, ())
-        if logit_transform is not None:
-            out = logit_transform(out)
-        loss = weighted_cross_entropy(out, tgt, cw)
-        loss.backward()
-        opt.step()
+    def __init__(self, adapter: ModelAdapter, variables: dict, opt: _Optimizer,
+                 class_weights, target, with_confusion: bool, capacity: int,
+                 logit_transform=None):
+        self.device = adapter.device
+        self.adapter = adapter
+        self.variables = variables
+        self.opt = opt
+        self.bundle = adapter.bundles["train"]
+        self.cw = torch.as_tensor(class_weights, dtype=torch.float64, device=self.device)
+        self.tgt = torch.as_tensor(target, device=self.device)
+        self.with_confusion = with_confusion
+        self.logit_transform = logit_transform
+        self.capacity = capacity
+        n_stats = 4 if with_confusion else 1
+        self.stats = torch.zeros((capacity, n_stats), dtype=torch.float64, device=self.device)
+        self.slot = torch.zeros((1,), dtype=torch.long, device=self.device)
+
+    def __call__(self) -> tuple[torch.Tensor, object]:
+        out, carry = self.adapter.apply(self.variables, self.bundle, ())
+        if self.logit_transform is not None:
+            out = self.logit_transform(out)
+        loss = weighted_cross_entropy(out, self.tgt, self.cw)
+        self.opt.step(list(torch.autograd.grad(loss, self.opt.params)))
         out = out.detach()
         stats = [loss.detach().double()]
-        if with_confusion:
-            stats.extend(c.double() for c in _confusion(out, tgt))
-        return torch.stack(stats), out, carry
+        if self.with_confusion:
+            stats.extend(c.double() for c in _confusion(out, self.tgt))
+        self.stats.index_copy_(0, self.slot, torch.stack(stats)[None])
+        self.slot.add_(1).remainder_(self.capacity)
+        return out, carry
+
+
+class _EagerChunks:
+    """Runs a step n times from Python, op by op: the CPU's path, and on a
+    card the reference that the captured chunks are held to.
+
+    ``chunks(n)`` takes n steps and returns the last one's (out, carry);
+    ``stats(n)`` is the stats rows of the last n steps, oldest first.
+    """
+
+    def __init__(self, step: _Step):
+        self.step = step
+        self.n_done = 0
+
+    def __call__(self, n: int) -> tuple[torch.Tensor, object]:
+        if n < 1:
+            raise ValueError(f"a chunk takes at least one step, not {n}")
+        for _ in range(n):
+            out = self.step()
+        self.n_done += n
+        return out
+
+    def stats(self, n: int) -> torch.Tensor:
+        cap = self.step.capacity
+        if not 1 <= n <= min(cap, self.n_done):
+            raise ValueError(f"the stats of {n} steps: {self.n_done} done, {cap} kept")
+        start = (self.n_done - n) % cap
+        if start + n <= cap:
+            return self.step.stats[start : start + n]
+        return torch.cat([self.step.stats[start:], self.step.stats[: start + n - cap]])
+
+
+@contextlib.contextmanager
+def _syncs_raise():
+    """Any operation that makes the host wait for the card raises, naming
+    itself: in the step it would stall every epoch, and fail the capture."""
+    mode = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        yield
+    finally:
+        torch.cuda.set_sync_debug_mode(mode)
+
+
+class _CapturedChunks(_EagerChunks):
+    """On a card: the step captured once as a CUDA graph and replayed.
+
+    The first step runs eagerly on a side stream, as PyTorch asks before a
+    capture (cuBLAS handles, workspaces and the autograd engine's buffers
+    come into being there); it is the run's first epoch, so the trajectory
+    is the eager one. Then the step is captured (which records and runs
+    nothing) and every later step is a replay: n steps are n replays, with
+    no kernel issued from Python between them. The kernels' launch counts
+    follow what ran: the capture's calls count nothing, each replay adds the
+    launches the capture recorded. A host sync in the step, or a capture or
+    replay that fails, raises; nothing falls back to the eager steps.
+    """
+
+    def __init__(self, step: _Step):
+        super().__init__(step)
+        self.graph = None
+        self.out = None
+        self.launches = spmm_cuda.LaunchLog()
+
+    def __call__(self, n: int) -> tuple[torch.Tensor, object]:
+        if n < 1:
+            raise ValueError(f"a chunk takes at least one step, not {n}")
+        if self.graph is None:
+            out = self._warm_up()
+            self._capture()
+            self.n_done += 1
+            n -= 1
+            if n == 0:
+                return out
+        for _ in range(n):
+            self.graph.replay()
+        self.launches.replayed(n)
+        self.n_done += n
+        return self.out
+
+    def _warm_up(self) -> tuple[torch.Tensor, object]:
+        device = self.step.device
+        side = torch.cuda.Stream(device)
+        side.wait_stream(torch.cuda.current_stream(device))
+        with torch.cuda.stream(side), _syncs_raise():
+            out = self.step()
+        torch.cuda.current_stream(device).wait_stream(side)
+        return out
+
+    def _capture(self) -> None:
+        graph = torch.cuda.CUDAGraph()
+        try:
+            with self.launches.recording(), torch.cuda.graph(graph), _syncs_raise():
+                self.out = self.step()
+        except RuntimeError as e:
+            raise RuntimeError(f"capturing the training step as a CUDA graph failed: {e}") from e
+        self.graph = graph
+
+
+def _chunks(step: _Step) -> _EagerChunks:
+    """The step's chunk runner: captured on a card, eager on the CPU."""
+    return _CapturedChunks(step) if step.device.type == "cuda" else _EagerChunks(step)
+
+
+def _lp_target(train: LinkPredSplit) -> np.ndarray:
+    """The labels of a link-prediction window's model edges: its slice-0
+    edges dropped, as the adapter's bundles drop them."""
+    return train.target[train.edges[0] != 0]
+
+
+def train_chunks(
+    adapter: ModelAdapter,
+    train: EdgeSplit | LinkPredSplit,
+    class_weights: np.ndarray,
+    cfg: TrainConfig,
+    task: str = "edge_cls",
+    loss_type: str = "softmax",
+    generator: torch.Generator | None = None,
+    variables: dict | None = None,
+    checkpointer=None,
+    capacity: int | None = None,
+) -> tuple[_EagerChunks, object, dict]:
+    """The step that a task trains on the adapter's train bundle, as the
+    JAX package's ``_make_steps`` builds it: (chunks, eval_forward,
+    variables).
+
+    ``task`` "edge_cls": the step scores ``train.target``; its stats rows
+    are [loss, tp, fp, fn]. "link_pred": it scores the window's model edges
+    (``_lp_target``), loss_type "sigmoid" maps 1-column logits to [p, 1-p]
+    pairs; its stats rows are [loss]. ``chunks`` runs the step (see
+    ``_chunks``), keeping the stats of its last ``capacity`` steps
+    (default ``cfg.n_epochs``). ``eval_forward(window, carry)`` is the
+    window's forward without grad, eager. The arguments ``generator``,
+    ``variables`` and ``checkpointer``: as ``_prepare`` takes them; the
+    ``variables`` returned are the params the step trains and the buffers.
+    """
+    if task == "edge_cls":
+        if loss_type != "softmax":
+            raise ValueError(f"edge classification trains the softmax loss, not {loss_type!r}")
+        target, transform = train.target, None
+    elif task == "link_pred":
+        if loss_type not in ("softmax", "sigmoid"):
+            raise ValueError(f"unknown loss_type {loss_type!r}")
+        target = _lp_target(train)
+        transform = sigmoid_pair_logits if loss_type == "sigmoid" else None
+    else:
+        raise ValueError(f"no training step for task {task!r}")
+    params, buffers, opt = _prepare(adapter, cfg, generator, variables, checkpointer)
+    variables = {"params": params, "buffers": buffers}
+    step = _Step(adapter, variables, opt, class_weights, target,
+                 with_confusion=task == "edge_cls",
+                 capacity=capacity if capacity is not None else max(cfg.n_epochs, 1),
+                 logit_transform=transform)
 
     @torch.no_grad()
     def eval_forward(window: str, carry):
         return adapter.apply(variables, adapter.bundles[window], carry)
 
-    return sgd_step, eval_forward
+    return _chunks(step), eval_forward, variables
 
 
 def run_edge_classification(
@@ -216,10 +386,9 @@ def run_edge_classification(
     ``variables``, ``generator``: as ``_prepare`` takes them; the returned
     variables have the same tree.
     """
-    params, buffers, opt = _prepare(adapter, cfg, generator, variables, checkpointer)
-    sgd_step, eval_forward = _make_steps(
-        adapter, params, buffers, opt, class_weights, splits["train"].target,
-        with_confusion=True,
+    chunks, eval_forward, variables = train_chunks(
+        adapter, splits["train"], class_weights, cfg, generator=generator,
+        variables=variables, checkpointer=checkpointer,
     )
 
     results = np.zeros((cfg.n_epochs, 12))
@@ -228,8 +397,8 @@ def run_edge_classification(
     ep = 0
     while ep < cfg.n_epochs:
         # Evaluation epoch: one step, then score val/test.
-        stats, _, carry = sgd_step()
-        loss, tp, fp, fn = stats.cpu().numpy()
+        _, carry = chunks(1)
+        loss, tp, fp, fn = chunks.stats(1)[0].cpu().numpy()
         p_tr, r_tr, f1_tr = _f1(tp, fp, fn)
         scored = {}
         for wname in ("val", "test"):
@@ -252,14 +421,14 @@ def run_edge_classification(
         # Non-evaluation epochs: stats stay on the device until the chunk ends.
         k = min(cfg.eval_every - 1, cfg.n_epochs - ep)
         if k > 0:
-            chunk = torch.stack([sgd_step()[0] for _ in range(k)]).cpu().numpy()
-            for i, (loss_i, tp_i, fp_i, fn_i) in enumerate(chunk):
+            chunks(k)
+            for i, (loss_i, tp_i, fp_i, fn_i) in enumerate(chunks.stats(k).cpu().numpy()):
                 p_tr, r_tr, f1_tr = _f1(tp_i, fp_i, fn_i)
                 results[ep + i] = [p_tr, r_tr, f1_tr, loss_i, *val_stats, *test_stats]
             ep += k
 
-    params = _tree_map(torch.Tensor.detach, params)
-    return results, {"params": params, "buffers": buffers}
+    return results, {"params": _tree_map(torch.Tensor.detach, variables["params"]),
+                     "buffers": variables["buffers"]}
 
 
 def run_link_prediction(
@@ -287,25 +456,18 @@ def run_link_prediction(
     score their last ``n_eval_tail`` edges, disjoint windows every model
     edge. ``variables``, ``generator``: as ``_prepare`` takes them.
     """
-    transform = None
-    if loss_type == "sigmoid":
-        transform = sigmoid_pair_logits
-    elif loss_type != "softmax":
-        raise ValueError(f"unknown loss_type {loss_type!r}")
     if eval_type not in ("MAP-MRR", "F1"):
         raise ValueError(f"unknown eval_type {eval_type!r}")
     use_f1 = eval_type == "F1"
-    params, buffers, opt = _prepare(adapter, cfg, generator, variables, checkpointer)
     train = splits["train"]
-    keep_train = train.edges[0] != 0
-    tgt_train = train.target[keep_train]  # the model edges' labels
-    sgd_step, eval_forward = _make_steps(
-        adapter, params, buffers, opt, class_weights, tgt_train, with_confusion=False,
-        logit_transform=transform,
+    chunks, eval_forward, variables = train_chunks(
+        adapter, train, class_weights, cfg, task="link_pred", loss_type=loss_type,
+        generator=generator, variables=variables, checkpointer=checkpointer,
     )
+    tgt_train, train_edges = _lp_target(train), train.edges[:, train.edges[0] != 0]
 
     def _pairs(out_np: np.ndarray) -> np.ndarray:
-        if transform is None:
+        if loss_type == "softmax":
             return out_np
         p = 1.0 / (1.0 + np.exp(-out_np.astype(np.float64)))
         return np.concatenate([p, 1.0 - p], axis=1)
@@ -317,8 +479,8 @@ def run_link_prediction(
     test_stats = (0.0,) * n_stats
     ep = 0
     while ep < cfg.n_epochs:
-        stats, out_train, carry = sgd_step()
-        loss = float(stats[0])
+        out_train, carry = chunks(1)
+        loss = float(chunks.stats(1)[0, 0])
         # The step's logits are already [p, 1-p] under loss_type="sigmoid";
         # _pairs maps them again, so train is scored on 4 columns, as the
         # JAX package scores it (tmgcn_tpu/train/loop.py:316).
@@ -326,7 +488,7 @@ def run_link_prediction(
         if use_f1:
             tr_stats = M.precision_recall_f1(np.argmax(out_tr, 1), tgt_train)
         else:
-            tr_stats = M.map_mrr(out_tr, tgt_train, train.edges[:, keep_train])
+            tr_stats = M.map_mrr(out_tr, tgt_train, train_edges)
         scored = {}
         for wname in ("val", "test"):
             out, carry = eval_forward(wname, carry)
@@ -357,10 +519,11 @@ def run_link_prediction(
         # Non-evaluation epochs: losses stay on the device until the chunk ends.
         k = min(cfg.eval_every - 1, cfg.n_epochs - ep)
         if k > 0:
-            losses = torch.stack([sgd_step()[0][0] for _ in range(k)]).cpu().numpy()
+            chunks(k)
+            losses = chunks.stats(k)[:, 0].cpu().numpy()
             for i in range(k):
                 results[ep + i] = [*tr_stats, losses[i], *val_stats, *test_stats]
             ep += k
 
-    params = _tree_map(torch.Tensor.detach, params)
-    return results, {"params": params, "buffers": buffers}
+    return results, {"params": _tree_map(torch.Tensor.detach, variables["params"]),
+                     "buffers": variables["buffers"]}

@@ -3,17 +3,21 @@
     python -m tmgcn_torch.utils.profile_slice [PRESET [SPMM_IMPL]]
 
 PRESET is chess_tmgcn_cls (the default) or chess_tmgcn2_cls, each run with
-spmm_impl="pallas" unless SPMM_IMPL names another, or chess_wdgcn_cls (the
-preset's own spmm_impl). Builds the slice's adapter
-once (device cuda, data in data/chess), warms the loop up with one run,
-then:
+spmm_impl="pallas" unless SPMM_IMPL names another, or chess_wdgcn_cls or
+chess_wdgcn_lp (the preset's own spmm_impl). Builds the preset's
+experiment once (device cuda, data in data/chess), warms the loop up with
+one run, then:
 
-  * times REPEATS warm runs of EPOCHS epochs each (two evaluation epochs):
-    median, quartiles and extremes of ms per epoch;
-  * traces a warm run of 21 epochs (one evaluation epoch, 20 plain ones)
-    with ``torch.profiler`` and prints the device time by kernel, the
-    device's busy share of the wall time (kernel time over wall time),
-    and the host time by operator.
+  * times REPEATS warm runs of EPOCHS epochs each (two evaluation epochs;
+    each run captures its step anew): median, quartiles and extremes of ms
+    per epoch;
+  * times chunks of plain epochs alone, captured (as the loop runs them on
+    the card) and eager (the loop's reference steps), in turns, by
+    ``timed_chunks`` (bench.py's rule);
+  * traces a warm captured chunk of TRACED_EPOCHS plain epochs with
+    ``torch.profiler`` and prints the device time by kernel, the device's
+    busy share of the wall time (kernel time over wall time), and the host
+    time by operator.
 
 Prints one JSON line at the end; needs a card.
 """
@@ -22,6 +26,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import subprocess
 import sys
 import time
@@ -29,11 +34,9 @@ import time
 import numpy as np
 import torch
 
-from tmgcn_torch.configs.build import build_data, build_model
+from tmgcn_torch.configs.build import build_experiment, run_trial, train_config, trial_chunks
 from tmgcn_torch.configs.presets import get_preset
-from tmgcn_torch.tasks.adapters import WINDOWS, make_edge_adapter
-from tmgcn_torch.tasks.windows import split_edges_classification
-from tmgcn_torch.train.loop import TrainConfig, run_edge_classification
+from tmgcn_torch.train import loop
 
 DATA_DIR = "data/chess"
 EPOCHS = 200
@@ -43,49 +46,116 @@ PRESETS = {
     "chess_tmgcn_cls": {"spmm_impl": "pallas"},
     "chess_tmgcn2_cls": {"spmm_impl": "pallas"},
     "chess_wdgcn_cls": {},
+    "chess_wdgcn_lp": {},
 }
 
 
+def chunk_runner(exp, tcfg, alpha: float, generator: torch.Generator, eager: bool = False):
+    """``run(n)``: n plain epochs of the step that ``run_trial`` trains at
+    ``alpha`` (``configs.build.trial_chunks``, parameters drawn from
+    ``generator``), returning the last one's stats row on the device.
+    Captured, as the loop runs them on a card; with ``eager``, the loop's
+    eager chunks of the same step, the reference the captured ones are held
+    to."""
+    chunks = trial_chunks(exp, tcfg, alpha, generator, capacity=1)
+    if eager:
+        chunks = loop._EagerChunks(chunks.step)
+
+    def run(n):
+        chunks(n)
+        return chunks.stats(1)
+
+    return run
+
+
 def build_runner(preset: str, spmm_impl: str | None = None):
-    """(cfg, run) for one preset on the card: the adapter is built once;
-    ``run(n_epochs, eval_every=cfg.eval_every)`` trains from the same
-    initial parameters each time."""
+    """(cfg, run, make_chunk) for one preset on the card: the experiment is
+    built once; ``run(n_epochs, eval_every=cfg.eval_every)`` trains from the
+    preset's initial parameters each time, through the loop users run, at
+    the preset's first alpha; ``make_chunk(eager=False)`` is
+    ``chunk_runner`` on the same adapter, alpha and initial parameters."""
     if preset not in PRESETS:
         raise SystemExit(f"profile_slice profiles one of {sorted(PRESETS)}, not {preset!r}")
     if not torch.cuda.is_available():
         raise SystemExit("profile_slice needs an NVIDIA card")
     overrides = dict(PRESETS[preset], **({"spmm_impl": spmm_impl} if spmm_impl else {}))
     cfg = dataclasses.replace(get_preset(preset), **overrides)
-    data = build_data(cfg, data_dir=DATA_DIR)
-    splits = split_edges_classification(
-        data.edge_index, data.edge_values, data.spec, n_classes=cfg.n_classes
-    )
-    model = build_model(cfg, data.spec.s_train, data.feats["train"].shape[-1])
-    adapter = make_edge_adapter(
-        model, data.adj, data.feats, {w: splits[w].edges for w in WINDOWS},
-        M=data.M if cfg.method == "tmgcn" else None, device=torch.device("cuda"),
-    )
-    cw = np.array([1 / 3, 1 / 3, 1 / 3])
-    gen = torch.Generator().manual_seed(cfg.seed)
+    exp = build_experiment(cfg, data_dir=DATA_DIR, device="cuda")
+    (alpha, *_) = cfg.alpha_vec
 
     def run(n_epochs, eval_every=cfg.eval_every):
-        tcfg = TrainConfig(n_epochs=n_epochs, lr=cfg.lr, momentum=cfg.momentum,
-                           eval_every=eval_every)
-        return run_edge_classification(adapter, splits, cw, tcfg, generator=gen)
+        tcfg = dataclasses.replace(train_config(cfg, n_epochs), eval_every=eval_every)
+        return run_trial(exp, tcfg, alpha, torch.Generator().manual_seed(cfg.seed))
 
-    return cfg, run
+    def make_chunk(eager=False):
+        return chunk_runner(exp, train_config(cfg), alpha,
+                            torch.Generator().manual_seed(cfg.seed), eager)
+
+    return cfg, run, make_chunk
+
+
+def timed_chunks(runs: dict, n_timed: int, rounds: int = 5, min_round_s: float = 0.25) -> dict:
+    """Seconds per epoch of each ``run(n)`` (n epochs, returning a device
+    tensor whose fetch waits for them), timed as bench.py's
+    ``_timed_epochs`` times a chunk: a warm chunk, a probe, the chunk grown
+    until a round covers ``min_round_s``, then the median of ``rounds``
+    rounds. bench.py caps the growth at 16×, which there bounds the
+    recompiles of a longer scan; a chunk here compiles nothing new at any
+    length, so it grows as far as the probe asks. The runs take their
+    rounds in turns. Per run: ms per epoch (median, best, max), the spread
+    (max - best) / median, the chunk length and the median round's
+    seconds."""
+    sizes = {}
+    for name, run in runs.items():
+        run(n_timed).cpu()
+        t0 = time.perf_counter()
+        run(n_timed).cpu()
+        probe = time.perf_counter() - t0
+        n = n_timed
+        if probe < min_round_s:
+            n *= math.ceil(min_round_s / max(probe, 1e-4))
+            run(n).cpu()
+        sizes[name] = n
+    per_round = {name: [] for name in runs}
+    for _ in range(rounds):
+        for name, run in runs.items():
+            t0 = time.perf_counter()
+            run(sizes[name]).cpu()
+            per_round[name].append((time.perf_counter() - t0) / sizes[name])
+    out = {}
+    for name, times in per_round.items():
+        med = float(np.median(times))
+        out[name] = {
+            "median_ms": 1e3 * med,
+            "best_ms": 1e3 * min(times),
+            "max_ms": 1e3 * max(times),
+            "run_spread": (max(times) - min(times)) / med,
+            "n_timed": sizes[name],
+            "round_s": med * sizes[name],
+            "rounds": rounds,
+        }
+    return out
 
 
 def trace(run_epochs, n_epochs: int = TRACED_EPOCHS, top: int = 8) -> tuple[dict, object]:
     """``run_epochs()``, a warm run of n_epochs, traced: device ms per
     epoch, the device's busy share of the wall time, host launch calls per
-    epoch and the ``top`` kernels' device ms; and the profiler's averages."""
+    epoch and the ``top`` kernels' device ms; and the profiler's averages.
+
+    Device time is the profiler's kernel time: on an H100 it sees the
+    kernels of a replayed CUDA graph. The span of CUDA events recorded
+    around the run is reported beside it, ``event_ms_per_profiled_epoch``
+    (the device's wall span, idle gaps included)."""
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
+        start.record()
         run_epochs()
+        end.record()
         torch.cuda.synchronize()
         wall_us = 1e6 * (time.perf_counter() - t0)
+    event_us = 1e3 * start.elapsed_time(end)
     avg = prof.key_averages()
     # Kernels (and copies) are the events on the device itself; operator
     # rows also carry their kernels' time, and annotation spans (the
@@ -105,19 +175,31 @@ def trace(run_epochs, n_epochs: int = TRACED_EPOCHS, top: int = 8) -> tuple[dict
         "profiled_epochs": n_epochs,
         "profiled_wall_ms": wall_us / 1e3,
         "device_ms_per_profiled_epoch": device_us / 1e3 / n_epochs,
+        "event_ms_per_profiled_epoch": event_us / 1e3 / n_epochs,
         "device_busy_share": device_us / wall_us,
-        # Host-side kernel launches (every kernel, library or ours).
+        # Host-side kernel and graph launches (every kernel, library or ours).
         "launch_calls_per_profiled_epoch": sum(
             e.count for e in avg if e.key in ("cudaLaunchKernel", "cuLaunchKernel", "cuLaunchKernelEx")
+        ) / n_epochs,
+        "graph_launches_per_profiled_epoch": sum(
+            e.count for e in avg if e.key in ("cudaGraphLaunch", "cuGraphLaunch")
         ) / n_epochs,
         "device_ms_by_kernel": dict(sorted(by_kernel.items(), key=lambda kv: -kv[1])[:top]),
     }, avg
 
 
+def card() -> str:
+    """The card's name and power limit, as nvidia-smi prints them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    ).stdout.strip()
+
+
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     preset = argv[0] if argv else "chess_tmgcn_cls"
-    cfg, run = build_runner(preset, argv[1] if len(argv) > 1 else None)
+    cfg, run, make_chunk = build_runner(preset, argv[1] if len(argv) > 1 else None)
 
     run(EPOCHS)  # the process's first launches of every kernel
     warm_ms = []
@@ -128,16 +210,17 @@ def main(argv=None) -> int:
         torch.cuda.synchronize()
         warm_ms.append(1e3 * (time.perf_counter() - t0) / EPOCHS)
 
-    traced, avg = trace(lambda: run(TRACED_EPOCHS, eval_every=TRACED_EPOCHS))
+    chunks = timed_chunks({"captured": make_chunk(), "eager": make_chunk(eager=True)},
+                          TRACED_EPOCHS)
+    chunk = make_chunk()
+    chunk(TRACED_EPOCHS).cpu()  # the warm-up step and the capture
+    traced, avg = trace(lambda: chunk(TRACED_EPOCHS).cpu(), TRACED_EPOCHS)
     print(avg.table(sort_by="self_device_time_total", row_limit=12))
     print(avg.table(sort_by="self_cpu_time_total", row_limit=12))
     result = {
         "preset": preset,
         "spmm_impl": cfg.spmm_impl,
-        "card": subprocess.run(
-            ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-            capture_output=True, text=True, timeout=60, check=True,
-        ).stdout.strip(),
+        "card": card(),
         "warm_ms_per_epoch": {
             "median": float(np.median(warm_ms)),
             "p25": float(np.percentile(warm_ms, 25)),
@@ -147,6 +230,7 @@ def main(argv=None) -> int:
             "runs": REPEATS,
             "epochs_per_run": EPOCHS,
         },
+        "plain_epoch_ms": chunks,
         **traced,
     }
     print(json.dumps(result))

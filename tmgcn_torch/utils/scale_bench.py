@@ -3,8 +3,10 @@
 The port's counterpart of tools/bench_scale.py: the same power-law
 temporal graph and labelled edges from the same seeds (its own numpy copy
 of ``build_graph`` / ``build_inputs``), trained with the port's adapters,
-loss and optimizer, full-batch SGD (lr 0.01, momentum 0.9, class weights
-[0.9, 0.1]):
+loss, optimizer and step, full-batch SGD (lr 0.01, momentum 0.9, class
+weights [0.9, 0.1]); on a card each step after the first is a replay of
+the step captured as one CUDA graph, as the tool scans its steps in one
+device call:
 
     python -m tmgcn_torch.utils.scale_bench [--nodes 500000] [--slices 64]
         [--nnz-per-slice 2000000] [--edges 1000000] [--families tmgcn1,tmgcn2]
@@ -37,6 +39,7 @@ import torch
 from tmgcn_torch.core.mmatrix import make_m_matrix
 from tmgcn_torch.core.sparse import TemporalCOO
 from tmgcn_torch.ops.degree import degree_features_np
+from tmgcn_torch.tasks.windows import EdgeSplit
 
 # Families of tools/bench_scale.py not ported yet, and their ROADMAP items.
 _NOT_PORTED = {
@@ -107,35 +110,41 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
-def timed_epochs(adapter, tgt: torch.Tensor, cw: torch.Tensor, n_steps: int):
-    """n_steps SGD steps twice: the first run pays the first launches, the
+# Rows of the steps' stats ring (at least the timed steps): ``run(n)``
+# takes up to this many steps as one chunk, more in chunks of this size.
+STATS_ROWS = 1024
+
+
+def timed_epochs(adapter, train: EdgeSplit, cw: np.ndarray, n_steps: int):
+    """n_steps SGD steps twice: the first run pays the first launches (on a
+    card, the warm-up step and the capture of the step as a CUDA graph), the
     second is timed. Returns (seconds per step, first-run seconds, every
     step's loss as numpy, and ``run(n)``, which takes n more steps from where
-    the timed ones ended and returns their losses as a tensor)."""
-    from tmgcn_torch.train.loop import TrainConfig, _optimizer, _tree_leaves
-    from tmgcn_torch.train.losses import weighted_cross_entropy
+    the timed ones ended and returns their losses as a tensor on the
+    adapter's device).
 
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    The steps are the training loop's edge-classification step on the train
+    bundle (``train.loop.train_chunks``), run as its chunks: on a card, n
+    steps are n replays of one captured graph, the port of the tool's
+    scanned chunk. The step also counts its confusion, as the loop's does;
+    the tool's scan keeps only the loss.
+    """
+    from tmgcn_torch.train.loop import TrainConfig, train_chunks
+
     device = adapter.device
-    variables = adapter.init(torch.Generator().manual_seed(0))
-    params = variables["params"]
-    for leaf in _tree_leaves(params):
-        leaf.requires_grad_(True)
-    buffers = variables["buffers"]
-    opt = _optimizer(TrainConfig(lr=0.01, momentum=0.9), _tree_leaves(params))
-    bundle = adapter.bundles["train"]
+    # Seed 0, as the tool draws its parameters.
+    ring = max(n_steps, STATS_ROWS)
+    chunks, _, _ = train_chunks(adapter, train, cw, TrainConfig(lr=0.01, momentum=0.9),
+                                capacity=ring)
 
     def run(n):
         losses = []
-        for _ in range(n):
-            opt.zero_grad()
-            out, _ = adapter.apply({"params": params, "buffers": buffers}, bundle, ())
-            loss = weighted_cross_entropy(out, tgt, cw)
-            loss.backward()
-            opt.step()
-            losses.append(loss.detach())
-        return torch.stack(losses)
+        while n > 0:
+            k = min(n, ring)
+            chunks(k)
+            losses.append(chunks.stats(k)[:, 0].clone())  # before the ring wraps
+            n -= k
+        return torch.cat(losses)
 
     _sync(device)
     t0 = time.perf_counter()
@@ -147,18 +156,24 @@ def timed_epochs(adapter, tgt: torch.Tensor, cw: torch.Tensor, n_steps: int):
     return dt, t_first, np.concatenate([first, timed]), run
 
 
+def labelled_edges(inputs) -> EdgeSplit:
+    """The tool's labelled edges as the train window's split."""
+    _, _, _, edges, tgt, _ = inputs
+    return EdgeSplit(edges, tgt, np.ones(tgt.shape, bool))
+
+
 def run_family(fam: str, inputs, n_timed: int, device: str | torch.device) -> dict:
     """Build one family's adapter on the shared inputs and time its epochs.
 
     Returns the tool's keys for the family (build seconds, ms/epoch,
-    edges/s), ``steps`` / ``losses`` of every training step run, and
+    edges/s), ``steps`` / ``losses`` of every training step run,
     ``run(n)``: n more steps on the same adapter and parameters (a warm
-    run to trace).
+    run to trace), and the ``adapter``.
     """
     from tmgcn_torch.tasks.adapters import WINDOWS, make_edge_adapter
 
     device = torch.device(device)
-    A, M, X, edges, tgt_np, cw_np = inputs
+    A, M, X, edges, _, cw_np = inputs
     key = _NAMES[fam]
     t0 = time.perf_counter()
     model, Mw = build_model(fam, A.n_slices, X.shape[-1], M)
@@ -171,9 +186,7 @@ def run_family(fam: str, inputs, n_timed: int, device: str | torch.device) -> di
     _sync(device)
     build_s = time.perf_counter() - t0
     n = n_timed if fam == "tmgcn1" else max(n_timed // 4, 3)
-    tgt = torch.as_tensor(tgt_np, device=device)
-    cw = torch.as_tensor(cw_np, device=device)
-    dt, t_first, losses, run = timed_epochs(adapter, tgt, cw, n)
+    dt, t_first, losses, run = timed_epochs(adapter, labelled_edges(inputs), cw_np, n)
     n_edges = edges.shape[1]
     return {
         f"{key}_build_s": build_s,
@@ -183,6 +196,7 @@ def run_family(fam: str, inputs, n_timed: int, device: str | torch.device) -> di
         "steps": 2 * n,
         "losses": losses,
         "run": run,
+        "adapter": adapter,
     }
 
 
