@@ -19,7 +19,10 @@ non-zero, and nothing falls back to the CPU:
                the same at chess_wdgcn_lp's readout plan (2E = 1,545,040
                endpoint rows of the train window's model edges into 79 x
                7,301 rows, F = 6, zero init), K1's launch in each of that
-               path's training steps;
+               path's training steps; then at the KW-GCN 2-layer epoch's
+               layer-2 SpMM (the chess train window of C, F = 6), the
+               forward packing and the transposed one (the backward), and
+               the operator's autograd backward;
   4. K2      — the lane-major twin against its plain version: random
                packings (F = 2, 6, 128, with and without init, with empty
                windows, windows of 256 and 2,048 rows), K1 transposed
@@ -80,10 +83,14 @@ non-zero, and nothing falls back to the CPU:
                c. ``python -m tmgcn_torch.cli run chess_wdgcn_cls
                   --spmm-impl pallas --epochs 200`` (in process): 203 K1
                   launches (3 for the cached propagation);
-               d. the WD-GCN scale run of ``tmgcn_torch.utils.scale_bench``
+               d. the WD-GCN, then the EvolveGCN scale run of
+                  ``tmgcn_torch.utils.scale_bench`` on the same inputs
                   (500,000 nodes x 64 slices, 1,000,000 labelled edges,
                   nnz_per_slice cut from 2,000,000 to 250,000): one K2
-                  launch per training step, no K1; then, outside the
+                  launch per training step (the readout plan's lane-major
+                  backward; EvolveGCN's slice one-hot is over its
+                  gather-free budget, so it runs the generic path with the
+                  plan), no K1; then, each, outside the
                   counts, 3 more warm steps traced with torch.profiler:
                   device ms per step, busy share, launch calls per step,
                   the top kernels' device ms; then on the same adapter the
@@ -116,8 +123,27 @@ non-zero, and nothing falls back to the CPU:
                   both LP
                   presets, the host scoring of one evaluation epoch (MAP,
                   MRR and loss of the three windows) timed alone;
+               k. KW-GCN: chess_gcn_cls with "pallas" (3 K1 launches, the
+                  cached propagation) and its preset ("jnp", none); the
+                  2-layer model, hidden (6, 6, 3), with "pallas", vs eager:
+                  607 K1 launches (3 cached propagations, layer 2's forward
+                  and backward and the readout plan's backward per step, a
+                  val and a test forward at 2 evaluation epochs);
+                  chess_gcn_lp with "pallas" (3 K1);
+               l. EvolveGCN-H, each vs eager: chess_evolvegcn_cls (the
+                  gather-free path, no kernel), chess_evolvegcn2_cls (the
+                  restricted layer 2 on the operator ``auto`` picks, printed
+                  with its ratio by window: K1 launches only where it picks
+                  K1), chess_evolvegcn_lp (the generic path: 200 K1, one per
+                  step, in the readout plan's backward). Their val and test
+                  F1 against the CPU are held to the range the CPU's
+                  evaluation logits allow once their tied edges go either
+                  way (the GRU's saturated weights cancel some logits
+                  exactly);
   8. capture — chess_tmgcn_cls (pallas), chess_tmgcn2_cls (pallas and the
-               preset's jnp), chess_wdgcn_cls and chess_wdgcn_lp: plain
+               preset's jnp), chess_wdgcn_cls, chess_wdgcn_lp,
+               chess_evolvegcn_cls, chess_evolvegcn2_cls and
+               chess_evolvegcn_lp: plain
                epochs captured and eager, timed in turns as bench.py times
                a chunk (a warm chunk, the chunk grown until a round covers
                0.25 s, the median of 5 rounds, with best, max and spread),
@@ -174,11 +200,43 @@ COUNTERS = (
 COUNTED = "(K1, K1 bf16, K2, K3, K3 bf16, K1 fast, K3 fast)"
 BF16_RTOL = 1e-3  # losses of the bf16 paths against the CPU's plain path
 DEVICE = "cuda"
-# The WD-GCN scale run: tools/bench_scale.py's wdgcn family, host build cut.
+# The scale runs: tools/bench_scale.py's inputs, host build cut.
 SCALE = {"n_nodes": 500_000, "n_slices": 64, "nnz_per_slice": 250_000,
          "n_edges": 1_000_000, "band": 20}
 SCALE_N_TIMED = 12  # -> 3 warm-up and 3 timed steps (scale_bench's rule)
 SCALE_TRACED_STEPS = 3
+
+
+@contextlib.contextmanager
+def _data_loaded_once():
+    """``configs.build.build_data`` memoized, in this process, by the fields
+    of the config that it reads: each chess data variant (the windows of Ct
+    or of C, the LP edge set) is built or loaded from its .mat cache once
+    (3-4 s a load on that machine's host), not once per run. Only a path's
+    first run of a variant reports the load in its ``data`` seconds."""
+    from tmgcn_torch.configs import build
+
+    loaded = {}
+    build_data = build.build_data
+
+    def once(cfg, data_dir=None, artifact=None):
+        key = (cfg.dataset, cfg.method == "tmgcn", cfg.task, cfg.same_block_size, cfg.seed,
+               cfg.beta1, cfg.beta2, cfg.cutoff, cfg.standardize_features, str(data_dir),
+               str(artifact))
+        if key not in loaded:
+            loaded[key] = build_data(cfg, data_dir=data_dir, artifact=artifact)
+        return loaded[key]
+
+    with mock.patch.object(build, "build_data", once):
+        yield
+
+
+@contextlib.contextmanager
+def _timed(phase: str):
+    """Print the host seconds a phase took (the run's budget is 1,200 s)."""
+    t0 = time.perf_counter()
+    yield
+    print(f"phase {phase}: {time.perf_counter() - t0:.1f} s")
 
 
 def check(cond: bool, msg: str) -> None:
@@ -571,6 +629,48 @@ def phase_k1_lp(torch, np) -> tuple[dict, float]:
     timing["shape"] = (f"chess_wdgcn_lp readout plan (F=6, {2 * edges.shape[1]:,} entries into "
                        f"{T} x {N} rows, zero init)")
     return timing, err
+
+
+def phase_k1_kwgcn(torch, np) -> tuple[dict, float]:
+    """K1 at the KW-GCN 2-layer epoch's layer-2 SpMM: the chess train window
+    of the untransformed C (80 disjoint slices, the prepacked operator of
+    spmm_impl="pallas"), F = 6, the forward packing and the transposed one
+    (the backward): against the plain version and torch.sparse.mm, the
+    operator's autograd backward, bitwise repeat, times beside the bound."""
+    from tmgcn_torch.configs.build import build_data
+    from tmgcn_torch.configs.presets import get_preset
+    from tmgcn_torch.kernels import spmm_cuda as tk
+
+    dev = torch.device(DEVICE)
+    k1, k1p = tk.windowed_segment_matmul, tk.windowed_segment_matmul_reference
+    C = build_data(get_preset("chess_gcn_cls"), data_dir=DATA_DIR).adj["train"]
+    t0 = time.perf_counter()
+    op = tk.make_operator(C).to(dev)
+    t_pack = time.perf_counter() - t0
+    T, N, F = op.T, op.N, 6
+    n_real = int(np.asarray(C.nnz).sum())
+    print(f"K1 KW-GCN 2-layer (chess train window of C, {T} x {N}, {n_real} entries): packing "
+          f"(both directions) {t_pack:.3f} s")
+    Y = torch.randn(T * N, F, device=dev, generator=torch.Generator(device=dev).manual_seed(2))
+    max_err = _check_operator_backward(torch, tk, op, Y.reshape(T, N, F), "KW-GCN 2-layer")
+    out = {}
+    for what, p in (("forward", op.packed), ("backward", op.packed_t)):
+        gathered = Y[p.cols.long().reshape(-1)].reshape(p.n_chunks, p.chunk, F).contiguous()
+        name = f"K1 KW-GCN 2-layer {what}"
+        max_err = max(max_err, _check_kernel(torch, k1, k1p, p, gathered, lambda: None, name))
+        csr = _packing_csr(torch, p, T * N)
+        lib_out = torch.sparse.mm(csr, Y)
+        err, tol = _max_err(k1(p, gathered)[: T * N], lib_out[: T * N])
+        check(err <= tol, f"{name} vs torch.sparse.mm: {err} > {tol}")
+        out[f"kwgcn2_{what}"] = {
+            **_time_shape(torch, k1, k1p, p, gathered, F, n_real, None,
+                          lambda csr=csr: torch.sparse.mm(csr, Y), name),
+            "shape": f"chess_gcn_cls 2-layer layer-2 {what} (F=6, {n_real:,} entries into "
+                     f"{T} x {N} rows; library gather included)",
+        }
+    del op, Y
+    torch.cuda.empty_cache()
+    return out, max_err
 
 
 def phase_k2(torch, np, scale_edges) -> dict:
@@ -1276,11 +1376,82 @@ def _eager_loop():
         yield
 
 
+@contextlib.contextmanager
+def _recorded_evals(logits: list):
+    """The training loop with the logits of its evaluation forwards (val,
+    then test, at each evaluation epoch) appended to ``logits`` as numpy."""
+    from tmgcn_torch.train import loop
+
+    train_chunks = loop.train_chunks
+
+    def recording(*args, **kwargs):
+        chunks, eval_forward, variables = train_chunks(*args, **kwargs)
+
+        def recorded(window, carry):
+            out, carry = eval_forward(window, carry)
+            logits.append(out.cpu().numpy())
+            return out, carry
+
+        return chunks, recorded, variables
+
+    with mock.patch.object(loop, "train_chunks", recording):
+        yield
+
+
+def _f1_range(np, logits, target, rel: float = 1e-5) -> list:
+    """Class-0 F1 with every tied edge predicted right and every one wrong.
+    An edge is tied when its class-0 logit is within ``rel`` (of the logits'
+    scale) of the best other class: its prediction is float rounding."""
+    from tmgcn_torch.tasks.metrics import precision_recall_f1
+
+    other = np.max(logits[:, 1:], axis=1)
+    tied = np.abs(logits[:, 0] - other) <= rel * max(1.0, float(np.abs(logits).max()))
+    guess = np.argmax(logits, axis=1)
+    return [precision_recall_f1(np.where(tied, np.where(target == 0, a, b), guess), target)[2]
+            for a, b in ((0, 1), (1, 0))]
+
+
+def _check_eval_f1_in_tie_range(np, cfg, got, ref_res, ref_logits, name: str) -> None:
+    """Val and test F1 of the card's first epochs against the range the CPU
+    run's evaluation logits allow once their tied edges go either way (1e-3
+    beyond it); train F1 within 1e-3 of the CPU's."""
+    from tmgcn_torch.configs.build import build_data
+    from tmgcn_torch.tasks.windows import split_edges_classification
+
+    data = build_data(cfg, data_dir=DATA_DIR)
+    splits = split_edges_classification(data.edge_index, data.edge_values, data.spec,
+                                        n_classes=cfg.n_classes)
+    same_nan = np.isnan(got[:, 2]) == np.isnan(ref_res[:, 2])
+    close = np.nan_to_num(np.abs(got[:, 2] - ref_res[:, 2]), nan=0.0) <= 1e-3
+    check(bool(np.all(same_nan & close)), f"{name}: train F1 differs from the CPU plain path")
+    n_tied = []
+    for ep in range(got.shape[0]):
+        i = ep // cfg.eval_every  # the evaluation whose rows epoch ep carries
+        for j, (w, col) in enumerate((("val", 6), ("test", 10))):
+            s = splits[w]
+            logits = ref_logits[2 * i + j][s.eval_mask]
+            lo, hi = _f1_range(np, logits, s.target[s.eval_mask])
+            finite = [v for v in (lo, hi) if not np.isnan(v)]
+            v = got[ep, col]
+            ok = (np.isnan(v) and len(finite) < 2) or (
+                bool(finite) and min(finite) - 1e-3 <= v <= max(finite) + 1e-3)
+            check(ok, f"{name}: {w} F1 {v} at epoch {ep} outside the CPU logits' tie range "
+                      f"[{lo}, {hi}]")
+            n_tied.append(int(np.sum(np.abs(logits[:, 0] - np.max(logits[:, 1:], axis=1))
+                                     <= 1e-5 * max(1.0, float(np.abs(logits).max())))))
+    print(f"{name}: val/test F1 within the CPU logits' tie range (tied edges by evaluation "
+          f"window: {n_tied[:2]})")
+
+
 def _run_slice(torch, np, tk, cfg, e_train: int, expected: tuple, epochs: int = EPOCHS,
-               warm: bool = True, rtol: float = 1e-4, vs_eager: bool = False) -> tuple:
+               warm: bool = True, rtol: float = 1e-4, vs_eager: bool = False,
+               f1_ties: bool = False) -> tuple:
     """Epochs on cuda (counted), a warm rerun, with ``vs_eager`` the same
     run through the loop's eager chunks (rows bitwise equal, the same
-    launches), 5 epochs against the CPU."""
+    launches), 5 epochs against the CPU. ``f1_ties``: the model's logits
+    can tie exactly in exact arithmetic (EvolveGCN's saturated GRU
+    weights cancel), so val and test F1 are held to the range the CPU
+    run's evaluation logits allow (``_check_eval_f1_in_tie_range``)."""
     from tmgcn_torch.configs.build import run_experiment
 
     name = f"{cfg.name} ({cfg.spmm_impl})"
@@ -1295,7 +1466,8 @@ def _run_slice(torch, np, tk, cfg, e_train: int, expected: tuple, epochs: int = 
     (_check_lp_rows if lp else _check_rows)(np, res, f"{name} cuda run")
     sec = out["seconds"]
     print(f"slice {name} cuda, first run: {epochs} epochs, {COUNTED} launches {launches}; "
-          f"data {sec['data']:.3f} s, adapter {sec['adapter']:.3f} s, "
+          f"data {sec['data']:.3f} s (0 once the variant is loaded), adapter "
+          f"{sec['adapter']:.3f} s, "
           f"train {sec['train']:.3f} s ({1e3 * sec['train'] / epochs:.6f} ms/epoch with the "
           f"process's first launches)")
     if lp:
@@ -1334,8 +1506,10 @@ def _run_slice(torch, np, tk, cfg, e_train: int, expected: tuple, epochs: int = 
               f"{1e3 * eager['seconds']['train'] / epochs:.6f} ms/epoch")
 
     # Reference: the same run on the CPU's plain path, first epochs.
-    ref = run_experiment(cfg, data_dir=DATA_DIR, n_epochs=REF_EPOCHS, verbose=False,
-                         device="cpu")
+    ref_logits = []
+    with _recorded_evals(ref_logits):
+        ref = run_experiment(cfg, data_dir=DATA_DIR, n_epochs=REF_EPOCHS, verbose=False,
+                             device="cpu")
     (ref_res,) = ref["results"].values()
     got = res[:REF_EPOCHS]
     losses = [2, 5, 8] if lp else [3, 7, 11]
@@ -1352,6 +1526,10 @@ def _run_slice(torch, np, tk, cfg, e_train: int, expected: tuple, epochs: int = 
               f"{ref_res[:, rates]}")
         print(f"slice {name} vs CPU plain path, {REF_EPOCHS} epochs: losses within rtol {rtol}, "
               f"MAP and MRR within rtol 1e-3")
+        return launches
+    if f1_ties:
+        _check_eval_f1_in_tie_range(np, cfg, got, ref_res, ref_logits, name)
+        print(f"slice {name} vs CPU plain path, {REF_EPOCHS} epochs: losses within rtol {rtol}")
         return launches
     f1s = [2, 6, 10]
     same_nan = np.isnan(got[:, f1s]) == np.isnan(ref_res[:, f1s])
@@ -1393,29 +1571,38 @@ def phase_wdgcn_chess(torch, np, tk, e_train: int) -> dict[str, tuple[int, int]]
     return counts
 
 
-def phase_wdgcn_scale(torch, np, tk, inputs, t_build: float, card: str) -> tuple[int, int]:
+# The scale families run here: (scale_bench family, label).
+SCALE_FAMILIES = (("wdgcn", "WD-GCN"), ("evolvegcn", "EvolveGCN"))
+
+
+def phase_scale(torch, np, tk, fam: str, inputs, t_build: float, card: str) -> tuple[int, int]:
+    """One family of the scale run on the shared inputs: one K2 launch per
+    step (the readout plan's lane-major backward), traced warm steps, and
+    captured against eager steps (losses bitwise, peak memory, times)."""
     from tmgcn_torch.utils import profile_slice, scale_bench
 
+    label = dict(SCALE_FAMILIES)[fam]
+    key = scale_bench._NAMES[fam]
     out, launches = _counted(
-        tk, lambda: scale_bench.run_family("wdgcn", inputs, SCALE_N_TIMED, DEVICE))
+        tk, lambda: scale_bench.run_family(fam, inputs, SCALE_N_TIMED, DEVICE))
     steps = out["steps"]
     expected = (0, 0, steps, 0, 0, 0, 0)
     check(launches == expected,
-          f"WD-GCN scale: {COUNTED} launched {launches} times in {steps} steps, "
+          f"{label} scale: {COUNTED} launched {launches} times in {steps} steps, "
           f"expected {expected}")
     losses = out["losses"]
     check(losses.shape == (steps,) and bool(np.all(np.isfinite(losses))),
-          f"WD-GCN scale: losses not finite: {losses}")
-    traced = _trace_scale_steps(torch, out["run"])
-    print(f"WD-GCN scale ({SCALE['n_nodes']} nodes x {SCALE['n_slices']} slices, "
+          f"{label} scale: losses not finite: {losses}")
+    traced = _trace_scale_steps(torch, out["run"], label)
+    print(f"{label} scale ({SCALE['n_nodes']} nodes x {SCALE['n_slices']} slices, "
           f"{SCALE['n_edges']} labelled edges, nnz_per_slice {SCALE['nnz_per_slice']} — cut from "
           f"2000000 to shorten the host build; only the set-up depends on it): host build "
-          f"{t_build:.3f} s, adapter build {out['wdgcn_build_s']:.3f} s, first {steps // 2} steps "
-          f"(warm-up step and capture included) {out['wdgcn_first_run_s']:.3f} s, "
-          f"{out['wdgcn_ms_per_epoch']:.6f} ms/epoch, "
-          f"{out['wdgcn_edges_per_s']:.1f} labelled edges/s; launches {launches} in "
+          f"{t_build:.3f} s, adapter build {out[f'{key}_build_s']:.3f} s, first {steps // 2} steps "
+          f"(warm-up step and capture included) {out[f'{key}_first_run_s']:.3f} s, "
+          f"{out[f'{key}_ms_per_epoch']:.6f} ms/epoch, "
+          f"{out[f'{key}_edges_per_s']:.1f} labelled edges/s; launches {launches} in "
           f"{steps} steps; losses {losses.tolist()} [{card}]")
-    print(f"WD-GCN scale traced warm, {traced['profiled_epochs']} captured steps (outside the "
+    print(f"{label} scale traced warm, {traced['profiled_epochs']} captured steps (outside the "
           f"counts): device {traced['device_ms_per_profiled_epoch']:.6f} ms per step (the "
           f"profiler's kernel time; CUDA events around the steps "
           f"{traced['event_ms_per_profiled_epoch']:.6f}), busy share "
@@ -1448,20 +1635,20 @@ def phase_wdgcn_scale(torch, np, tk, inputs, t_build: float, card: str) -> tuple
         memory[name] = {"peak_bytes": torch.cuda.max_memory_allocated(), "before_bytes": base,
                         "after_bytes": torch.cuda.memory_allocated()}
         check(np.array_equal(side_losses, losses),
-              f"WD-GCN scale: the {name} steps' losses {side_losses.tolist()} differ from the "
+              f"{label} scale: the {name} steps' losses {side_losses.tolist()} differ from the "
               f"counted run's {losses.tolist()}")
-    print(f"WD-GCN scale captured vs eager, {2 * n} steps each from the same parameters: losses "
+    print(f"{label} scale captured vs eager, {2 * n} steps each from the same parameters: losses "
           f"bitwise equal; peak device memory (torch.cuda.max_memory_allocated, adapter "
           f"included) {json.dumps(memory)} [{card}]")
     times = profile_slice.timed_chunks(runs, n)
-    _print_times("WD-GCN scale steps,", times, card, unit="step")
+    _print_times(f"{label} scale steps,", times, card, unit="step")
     del runs, adapter
     gc.collect()
     torch.cuda.empty_cache()
     return launches
 
 
-def _trace_scale_steps(torch, run) -> dict:
+def _trace_scale_steps(torch, run, label: str) -> dict:
     """SCALE_TRACED_STEPS more warm scale steps, traced as profile_slice
     traces a chess epoch."""
     from tmgcn_torch.utils import profile_slice
@@ -1469,8 +1656,8 @@ def _trace_scale_steps(torch, run) -> dict:
     losses = []
     traced, avg = profile_slice.trace(lambda: losses.append(run(SCALE_TRACED_STEPS)),
                                       SCALE_TRACED_STEPS, top=12)
-    check(bool(torch.isfinite(losses[0]).all()), "WD-GCN scale traced steps: a loss is not finite")
-    check(traced["device_ms_per_profiled_epoch"] > 0, "WD-GCN scale: the trace shows no device time")
+    check(bool(torch.isfinite(losses[0]).all()), f"{label} scale traced steps: a loss is not finite")
+    check(traced["device_ms_per_profiled_epoch"] > 0, f"{label} scale: the trace shows no device time")
     cuda = torch.autograd.DeviceType.CUDA
 
     def per_step(match, total) -> float:
@@ -1547,10 +1734,89 @@ def phase_lp(torch, np, tk) -> dict[str, tuple]:
     return counts
 
 
+def phase_gcn(torch, np, tk, e_train: int) -> dict[str, tuple]:
+    """KW-GCN through run_experiment: chess_gcn_cls with "pallas" (3 K1
+    launches, the cached propagation of the three disjoint windows) and its
+    preset ("jnp": none); the 2-layer model, hidden (6, 6, 3), with
+    "pallas" (K1 in layer 2's forward and backward and in the readout
+    plan's backward each step); chess_gcn_lp with "pallas" (3 K1)."""
+    from tmgcn_torch.configs.presets import get_preset
+
+    base = get_preset("chess_gcn_cls")
+    check(base.spmm_impl == "jnp", "chess_gcn_cls is expected to name spmm_impl jnp")
+    zeros = (0, 0, 0, 0, 0, 0, 0)
+    counts = {"chess_gcn_cls pallas": _run_slice(
+        torch, np, tk, dataclasses.replace(base, spmm_impl="pallas"), e_train,
+        (3, 0, 0, 0, 0, 0, 0))}
+    counts["chess_gcn_cls preset (jnp)"] = _run_slice(torch, np, tk, base, e_train, zeros,
+                                                      warm=False)
+    two = dataclasses.replace(base, name="chess_gcn_cls_2layer", n_layers=2,
+                              hidden_feat=(6, 6, 3), spmm_impl="pallas")
+    # 3 cached propagations; per step layer 2's forward and backward and the
+    # readout backward; a val and a test forward at each evaluation epoch.
+    n_evals = -(-EPOCHS // two.eval_every)
+    counts["chess_gcn_cls 2-layer (6, 6, 3) pallas"] = _run_slice(
+        torch, np, tk, two, e_train, (3 + 3 * EPOCHS + 2 * n_evals, 0, 0, 0, 0, 0, 0),
+        vs_eager=True)
+    lp = get_preset("chess_gcn_lp")
+    edges, _, _ = _chess_wdgcn_lp_train_edges()  # the baselines' LP train window
+    counts["chess_gcn_lp pallas"] = _run_slice(
+        torch, np, tk, dataclasses.replace(lp, spmm_impl="pallas"), edges.shape[1],
+        (3, 0, 0, 0, 0, 0, 0), warm=False)
+    return counts
+
+
+def _restricted_choices(cfg) -> dict:
+    """The restricted layer-2 operator the ``auto`` rule picks for each
+    window of ``cfg`` on the card, and the block-dense estimate's ratio."""
+    from tmgcn_torch.configs.build import build_experiment
+
+    exp = build_experiment(cfg, DATA_DIR, device=DEVICE)
+    out = {w: exp.adapter.bundles[w]["l2op_choice"] for w in ("train", "val", "test")}
+    del exp
+    return out
+
+
+def phase_evolvegcn(torch, np, tk, e_train: int) -> dict[str, tuple]:
+    """EvolveGCN-H through run_experiment, each captured against the eager
+    loop: chess_evolvegcn_cls (the gather-free path: no kernel),
+    chess_evolvegcn2_cls (the restricted layer 2 on the operator ``auto``
+    picks: block-dense on cuBLAS, or K1), chess_evolvegcn_lp (the generic
+    path: K1 in the readout plan's backward once a step)."""
+    from tmgcn_torch.configs.presets import get_preset
+
+    zeros = (0, 0, 0, 0, 0, 0, 0)
+    counts = {"chess_evolvegcn_cls": _run_slice(
+        torch, np, tk, get_preset("chess_evolvegcn_cls"), e_train, zeros, vs_eager=True,
+        f1_ties=True)}
+    two = get_preset("chess_evolvegcn2_cls")
+    choices = _restricted_choices(two)
+    print(f"chess_evolvegcn2_cls: the restricted layer-2 operator auto picks on the card, by "
+          f"window (block-dense below ratio 0.5): {json.dumps(choices)}")
+    # K1 per window that picked it: forward and backward every training
+    # step; a forward at each evaluation epoch for val and test.
+    n_evals = -(-EPOCHS // two.eval_every)
+    k1 = sum((2 * EPOCHS if w == "train" else n_evals) for w, c in choices.items()
+             if c["operator"] == "pallas")
+    counts["chess_evolvegcn2_cls"] = _run_slice(torch, np, tk, two, e_train,
+                                                (k1, 0, 0, 0, 0, 0, 0), vs_eager=True,
+                                                f1_ties=True)
+    edges, _, _ = _chess_wdgcn_lp_train_edges()
+    counts["chess_evolvegcn_lp"] = _run_slice(
+        torch, np, tk, get_preset("chess_evolvegcn_lp"), edges.shape[1],
+        (EPOCHS, 0, 0, 0, 0, 0, 0), vs_eager=True)
+    return counts
+
+
 # The chess paths timed captured against eager: (preset, spmm_impl or
 # None for the preset's own).
 TIMED_PATHS = (("chess_tmgcn_cls", "pallas"), ("chess_tmgcn2_cls", "pallas"),
-               ("chess_tmgcn2_cls", "jnp"), ("chess_wdgcn_cls", None), ("chess_wdgcn_lp", None))
+               ("chess_tmgcn2_cls", "jnp"), ("chess_wdgcn_cls", None), ("chess_wdgcn_lp", None),
+               ("chess_evolvegcn_cls", None), ("chess_evolvegcn2_cls", None),
+               ("chess_evolvegcn_lp", None))
+
+
+TIMED_PROBE = 5
 
 
 def _print_times(what: str, times: dict, card: str, unit: str = "epoch") -> None:
@@ -1574,8 +1840,10 @@ def phase_capture_timing(torch, card: str) -> dict:
     for preset, impl in TIMED_PATHS:
         cfg, _, make_chunk = profile_slice.build_runner(preset, impl)
         path = f"{preset} ({cfg.spmm_impl})"
+        # Rounds of at least 0.25 s from a probe of TIMED_PROBE epochs: the
+        # slow eager sides (40-130 ms an epoch) need no longer probe.
         times = profile_slice.timed_chunks({"captured": make_chunk(),
-                                            "eager": make_chunk(eager=True)}, n)
+                                            "eager": make_chunk(eager=True)}, TIMED_PROBE)
         _print_times(f"{path} plain epochs,", times, card)
         chunk = make_chunk()
         chunk(n).cpu()  # the warm-up step and the capture
@@ -1610,33 +1878,51 @@ def main() -> int:
     except ImportError as e:
         sys.exit(f"chip_smoke: FAIL: run from the root of a tmgcn checkout ({e})")
     check("jax" not in sys.modules, "jax was imported")
+    with _data_loaded_once():
+        return _phases(np, torch, tk, scale_bench)
 
+
+def _phases(np, torch, tk, scale_bench) -> int:
     t_start = time.perf_counter()
     card = phase_card()
-    phase_build()
-    k1, e_train = phase_k1(torch, np)
-    k1["lp_readout_backward"], lp_err = phase_k1_lp(torch, np)
-    k1["max_abs_err"] = max(k1["max_abs_err"], lp_err)
+    with _timed("build"):
+        phase_build()
+    with _timed("K1"):
+        k1, e_train = phase_k1(torch, np)
+        k1["lp_readout_backward"], lp_err = phase_k1_lp(torch, np)
+        kwgcn2, kw_err = phase_k1_kwgcn(torch, np)
+        k1.update(kwgcn2)
+        k1["max_abs_err"] = max(k1["max_abs_err"], lp_err, kw_err)
     t0 = time.perf_counter()
     inputs = scale_bench.build_inputs(**SCALE)
     t_scale_build = time.perf_counter() - t0
-    k2 = phase_k2(torch, np, inputs[3])
-    k1_bf16, restricted = phase_restricted(torch, np)
-    k1.update(restricted_forward=restricted["k1_f32_forward"],
-              restricted_backward=restricted["k1_f32_backward"])
-    k3, k3_bf16 = phase_k3(torch, np)
-    t0 = time.perf_counter()
-    k1_fast, k3_fast, k1_spmm_bench, fast_counts = phase_fast(torch, np, tk)
-    k1.update(k1_spmm_bench)
-    print(f"fast-tier phase: {time.perf_counter() - t0:.3f} s")
-    by_path = {"chess_tmgcn_cls pallas": phase_tmgcn(torch, np, tk, e_train)}
-    by_path.update(phase_wdgcn_chess(torch, np, tk, e_train))
-    by_path["wdgcn scale 500k x 64"] = phase_wdgcn_scale(torch, np, tk, inputs, t_scale_build,
-                                                         card)
-    by_path.update(phase_tmgcn2(torch, np, tk))
-    by_path.update(phase_lp(torch, np, tk))
+    with _timed("K2"):
+        k2 = phase_k2(torch, np, inputs[3])
+    with _timed("K1 bf16 and the restricted operators"):
+        k1_bf16, restricted = phase_restricted(torch, np)
+        k1.update(restricted_forward=restricted["k1_f32_forward"],
+                  restricted_backward=restricted["k1_f32_backward"])
+    with _timed("K3"):
+        k3, k3_bf16 = phase_k3(torch, np)
+    with _timed("fast tiers"):
+        k1_fast, k3_fast, k1_spmm_bench, fast_counts = phase_fast(torch, np, tk)
+        k1.update(k1_spmm_bench)
+    with _timed("paths: TM-GCN 1 layer, WD-GCN chess"):
+        by_path = {"chess_tmgcn_cls pallas": phase_tmgcn(torch, np, tk, e_train)}
+        by_path.update(phase_wdgcn_chess(torch, np, tk, e_train))
+    for fam, _ in SCALE_FAMILIES:
+        with _timed(f"paths: {fam} scale"):
+            by_path[f"{fam} scale 500k x 64"] = phase_scale(torch, np, tk, fam, inputs,
+                                                             t_scale_build, card)
+    for name, phase in (("TM-GCN 2 layers", phase_tmgcn2), ("link prediction", phase_lp)):
+        with _timed(f"paths: {name}"):
+            by_path.update(phase(torch, np, tk))
+    for name, phase in (("KW-GCN", phase_gcn), ("EvolveGCN", phase_evolvegcn)):
+        with _timed(f"paths: {name}"):
+            by_path.update(phase(torch, np, tk, e_train))
     by_path.update(fast_counts)
-    profiles = phase_capture_timing(torch, card)
+    with _timed("capture timing"):
+        profiles = phase_capture_timing(torch, card)
     check("jax" not in sys.modules and "tmgcn_tpu" not in sys.modules,
           "the JAX package was imported")
     kernels = (k1, k1_bf16, k2, k3, k3_bf16, k1_fast, k3_fast)
@@ -1651,7 +1937,8 @@ def main() -> int:
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
     extra = ("shape", "launches_by_path", "train_window", "lp_readout_backward", "restricted_forward",
-             "restricted_backward", "cached_propagation", "k1_at_scale_packing_ms",
+             "restricted_backward", "kwgcn2_forward", "kwgcn2_backward", "cached_propagation",
+             "k1_at_scale_packing_ms",
              "readout_backward_ops_ms", "spmm_bench_r1", "spmm_bench_chess2")
     print(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [

@@ -21,6 +21,10 @@ runs eagerly. Here:
 * Adam with its count on the device equals optax over 6 steps, with and
   without grad_clip=1.0 (rtol 1e-10 in float64), and keeps no state in
   Python that a replay would freeze;
+* EvolveGCN's carry (its evolved final weights, threaded train -> val ->
+  test) comes out of the step detached and equal to the eager algorithm's,
+  on each of its adapter paths; KW-GCN and EvolveGCN run the same cases
+  as the other families;
 * the launch-accounting rule of spmm_cuda as a pure function;
 * WD-GCN's rematerialized scan, whose checkpoint keeps no RNG state,
   against the JAX scan in value and gradients.
@@ -38,6 +42,8 @@ import torch
 
 from tmgcn_tpu.core.sparse import TemporalCOO as JaxCOO
 from tmgcn_tpu.models import wdgcn as jwd
+from tmgcn_tpu.models.evolvegcn import EvolveGCN as JEvolveGCN
+from tmgcn_tpu.models.gcn import KWGCN as JKWGCN
 from tmgcn_tpu.models.tmgcn import TMGCN as JTMGCN
 from tmgcn_tpu.models.tmgcn import TMGCN2 as JTMGCN2
 from tmgcn_tpu.tasks import adapters as jad
@@ -47,6 +53,8 @@ from tmgcn_torch.configs.build import params_from_jax
 from tmgcn_torch.core.sparse import TemporalCOO
 from tmgcn_torch.kernels import spmm_cuda
 from tmgcn_torch.models import wdgcn as twd
+from tmgcn_torch.models.evolvegcn import EvolveGCN
+from tmgcn_torch.models.gcn import KWGCN
 from tmgcn_torch.models.tmgcn import TMGCN, TMGCN2
 from tmgcn_torch.tasks import adapters as tad
 from tmgcn_torch.tasks import metrics as M
@@ -93,23 +101,45 @@ def _models(family, n_slices, hidden, spmm_impl, jax_impl):
     if family == "tmgcn2":
         return (JTMGCN2(dtype=jnp.float64, nonlin2="selu", spmm_impl=jax_impl, **kw),
                 TMGCN2(dtype=torch.float64, nonlin2="selu", spmm_impl=spmm_impl, **kw))
+    if family == "gcn":
+        return (JKWGCN(dtype=jnp.float64, nonlin2="selu", spmm_impl=jax_impl, **kw),
+                KWGCN(dtype=torch.float64, nonlin2="selu", spmm_impl=spmm_impl, **kw))
+    if family == "evolvegcn":
+        return (JEvolveGCN(dtype=jnp.float64, **kw), EvolveGCN(dtype=torch.float64, **kw))
+    if family == "evolvegcn_generic":  # embed_dtype != dtype: the JAX generic path
+        return (JEvolveGCN(dtype=jnp.float64, embed_dtype=jnp.float32, **kw),
+                EvolveGCN(dtype=torch.float64, embed_dtype=torch.float32, **kw))
     return (jwd.WDGCN(dtype=jnp.float64, scan_unroll=1, spmm_impl=jax_impl, **kw),
             twd.WDGCN(dtype=torch.float64, spmm_impl=spmm_impl, **kw))
+
+
+def _same_block(family) -> bool:
+    """TM-GCN's shifted windows; the baselines' disjoint ones."""
+    return family in ("tmgcn", "tmgcn2")
 
 
 # Classification: (family, hidden, the port's spmm_impl, the JAX side's).
 # The JAX side runs "jnp" where its Pallas interpreter would only slow the
 # test; the JAX suite holds its operators equal to "jnp".
+# EvolveGCN's carry (its evolved final weights) threads train -> val -> test:
+# at 1 layer through the gather-free path, at 2 the restricted layer 2, and
+# with embed_dtype set the generic staged path.
 CLS_CASES = {
     "tmgcn1": ("tmgcn", (4, 3), "jnp", "jnp"),
     "tmgcn2_pallas": ("tmgcn2", (5, 4, 3), "pallas", "jnp"),
     "wdgcn_pallas": ("wdgcn", (4, 3), "pallas", "pallas"),
+    "gcn2_pallas": ("gcn", (5, 4, 3), "pallas", "jnp"),
+    "evolvegcn1": ("evolvegcn", (4, 3), "jnp", "jnp"),
+    "evolvegcn2": ("evolvegcn", (5, 4, 3), "jnp", "jnp"),
+    "evolvegcn1_generic": ("evolvegcn_generic", (4, 3), "jnp", "jnp"),
 }
 # Link prediction: (family, hidden, spmm_impl, loss_type).
 LP_CASES = {
     "tmgcn1_pallas": ("tmgcn", (4, 2), "pallas", "softmax"),
     "tmgcn1_sigmoid": ("tmgcn", (4, 1), "jnp", "sigmoid"),
     "wdgcn": ("wdgcn", (4, 2), "jnp", "softmax"),
+    "gcn1_pallas": ("gcn", (4, 2), "pallas", "softmax"),
+    "evolvegcn1": ("evolvegcn", (4, 2), "jnp", "softmax"),
 }
 CLS_CW = np.array([0.25, 0.5, 0.25])
 LP_CW = np.array([0.9, 0.1])
@@ -119,7 +149,7 @@ def _cls_setup(case):
     """(JAX adapter, port adapter, splits) of a 3-class edge task on 8 slices."""
     family, hidden, impl, jax_impl = CLS_CASES[case]
     rng, dense, X, Mm = _graph()
-    spec = WindowSpec(8, 2, 2, same_block_size=family != "wdgcn")
+    spec = WindowSpec(8, 2, 2, same_block_size=_same_block(family))
     adj_t, adj_j = _windows(spec, dense)
     feats = window_features(X, spec)
     splits = {}
@@ -131,7 +161,7 @@ def _cls_setup(case):
         splits[w] = types.SimpleNamespace(edges=edges, target=rng.integers(0, 3, E),
                                           eval_mask=rng.random(E) < 0.8)
     edges = {w: splits[w].edges for w in WINDOWS}
-    Mw = Mm if family != "wdgcn" else None
+    Mw = Mm if _same_block(family) else None
     model_j, model_t = _models(family, 8, hidden, impl, jax_impl)
     ad_j = jad.make_edge_adapter(model_j, adj_j, feats, edges, M=Mw)
     ad_t = tad.make_edge_adapter(model_t, adj_t, feats, edges, M=Mw, device="cpu")
@@ -142,7 +172,7 @@ def _lp_setup(case):
     """(JAX adapter, port adapter, splits) of link prediction on 7 model slices."""
     family, hidden, impl, _ = LP_CASES[case]
     rng, dense, X, Mm = _graph()
-    spec = WindowSpec(8, 2, 2, same_block_size=family != "wdgcn")
+    spec = WindowSpec(8, 2, 2, same_block_size=_same_block(family))
     E = 15 * T_ALL
     real = np.stack([np.sort(rng.integers(0, T_ALL, E)), rng.integers(0, N, E),
                      rng.integers(0, N, E)])
@@ -150,7 +180,7 @@ def _lp_setup(case):
     adj_t, adj_j = _windows(spec, dense)
     feats = window_features(X, spec)
     edges = {w: splits[w].model_edges for w in WINDOWS}
-    Mw = Mm if family != "wdgcn" else None
+    Mw = Mm if _same_block(family) else None
     model_j, model_t = _models(family, 7, hidden, impl, "jnp")
     ad_j = jad.make_edge_adapter(model_j, adj_j, feats, edges, M=Mw, drop_last_slice=True)
     ad_t = tad.make_edge_adapter(model_t, adj_t, feats, edges, M=Mw, drop_last_slice=True,
@@ -301,6 +331,36 @@ def test_link_prediction_step_matches_the_eager_algorithm(case):
     assert res.shape == (EPOCHS, 9)
     np.testing.assert_array_equal(res, ref)
     _assert_trees_equal(out["params"], ref_params)
+
+
+@pytest.mark.parametrize("case", ["evolvegcn1", "evolvegcn2", "evolvegcn1_generic"])
+def test_step_returns_the_carry_detached(case):
+    """EvolveGCN's carry, its evolved final weights, comes out of the step
+    (the form a graph holds) as the eager algorithm's: equal to the train
+    forward's finals before the update, a tree of tensors with no autograd
+    history; and the val window evolves from it, not from W_init."""
+    _, ad_t, splits = _cls_setup(case)
+    variables = ad_t.init(torch.Generator().manual_seed(2))
+    # The eager algorithm's train forward (with grad, as _oracle's step runs it).
+    grad_vars = {"params": tloop._tree_map(lambda v: v.clone().requires_grad_(True),
+                                           variables["params"]),
+                 "buffers": variables["buffers"]}
+    _, ref = ad_t.apply(grad_vars, ad_t.bundles["train"], ())
+    chunks, eval_forward, trained = tloop.train_chunks(
+        ad_t, splits["train"], CLS_CW, tloop.TrainConfig(n_epochs=3), variables=variables)
+    _, carry = chunks(1)
+    n_layers = len(CLS_CASES[case][1]) - 1
+    assert isinstance(carry, tuple) and len(carry) == len(ref) == n_layers
+    for c, r in zip(carry, ref):
+        assert isinstance(c, torch.Tensor) and c.grad_fn is None and not c.requires_grad
+        assert torch.equal(c, r.detach())
+    out_val, carry_val = eval_forward("val", carry)
+    assert all(c.grad_fn is None for c in carry_val)
+    with torch.no_grad():
+        ref_val, _ = ad_t.apply(trained, ad_t.bundles["val"], carry)
+        val_from_init, _ = ad_t.apply(trained, ad_t.bundles["val"], ())
+    assert torch.equal(out_val, ref_val)
+    assert not torch.allclose(out_val, val_from_init)
 
 
 @pytest.mark.parametrize("case", sorted(CLS_CASES))

@@ -434,7 +434,9 @@ def test_restricted_layer2_on_the_card(cuda_device, operator):
 # (family, spmm_impl, K1 launches in 4 epochs: the cached propagation of 3
 # distinct windows, or the readout plan's backward once per training step)
 LP_CASES = {"tmgcn1_pallas": ("tmgcn", "pallas", 3), "wdgcn_jnp": ("wdgcn", "jnp", 4),
-            "tmgcn2_pallas": ("tmgcn2", "pallas", 3 + 2 * 4 + 4)}
+            "tmgcn2_pallas": ("tmgcn2", "pallas", 3 + 2 * 4 + 4),
+            "evolvegcn1": ("evolvegcn", "jnp", 0),
+            "evolvegcn1_generic": ("evolvegcn_generic", "jnp", 4)}
 
 
 def _lp_problem(family: str, impl: str):
@@ -448,7 +450,7 @@ def _lp_problem(family: str, impl: str):
 
     rng = np.random.default_rng(7)
     T_all, N, E = 12, 300, 2400
-    spec = WindowSpec(8, 2, 2, same_block_size=family != "wdgcn")
+    spec = WindowSpec(8, 2, 2, same_block_size=family in ("tmgcn", "tmgcn2"))
     dense = (rng.random((T_all, N, N)) < 0.03) * rng.random((T_all, N, N))
     X = rng.standard_normal((T_all, N, 2)).astype(np.float32)
     real = np.stack([np.sort(rng.integers(0, T_all, E)), rng.integers(0, N, E),
@@ -462,6 +464,8 @@ def _lp_problem(family: str, impl: str):
     M = None
     if family == "wdgcn":
         model = WDGCN(hidden_feat=(6, 2), **kw)
+    elif family.startswith("evolvegcn"):
+        model = _evolvegcn(family, 7, (6, 2))
     elif family == "tmgcn":
         model, M = TMGCN(hidden_feat=(6, 2), **kw), make_m_matrix(8, 3)
     else:
@@ -470,7 +474,7 @@ def _lp_problem(family: str, impl: str):
 
 
 @pytest.mark.parametrize("case", sorted(LP_CASES))
-def test_link_prediction_on_the_card(cuda_device, case):
+def test_link_prediction_on_the_card(cuda_device, case, monkeypatch):
     """run_link_prediction on the card against the CPU's plain path: K1 as
     often as the path needs, the same (epochs, 9) rows (losses rtol 1e-4,
     MAP and MRR rtol 1e-3), a repeated run bitwise equal."""
@@ -479,6 +483,7 @@ def test_link_prediction_on_the_card(cuda_device, case):
 
     family, impl, k1_launches = LP_CASES[case]
     model, M, adj, feats, edges, splits = _lp_problem(family, impl)
+    _generic_path(family, monkeypatch)
     variables = model.init(torch.Generator().manual_seed(0))
     cfg = TrainConfig(n_epochs=4, eval_every=3)
 
@@ -510,12 +515,31 @@ def _launches() -> list[int]:
     return [getattr(w, c) for w, c in COUNTERS]
 
 
+def _evolvegcn(family: str, n_slices: int, hidden: tuple):
+    """EvolveGCN-H (a "_generic" family: see ``_generic_path``)."""
+    from tmgcn_torch.models.evolvegcn import EvolveGCN
+
+    return EvolveGCN(n_slices=n_slices, in_feat=2, hidden_feat=hidden)
+
+
+def _generic_path(family: str, monkeypatch) -> None:
+    """A "_generic" EvolveGCN family runs the adapter's generic staged path
+    (the readout plan's K1 backward; at 2 layers spmm "jnp" every step): the
+    one-hot budgets set to 0 route it there at this size."""
+    from tmgcn_torch.tasks import adapters
+
+    if family.endswith("_generic"):
+        monkeypatch.setattr(adapters, "ONEHOT_BUDGET_1LAYER", 0)
+        monkeypatch.setattr(adapters, "ONEHOT_BUDGET_RESTRICTED", 0)
+
+
 def _cls_problem(family: str, impl: str):
     """(model, M, adj, feats, edges, splits) of a small 3-class edge task:
     6 slices of 400 nodes, one graph for the three windows."""
     import types
 
     from tmgcn_torch.core.mmatrix import make_m_matrix
+    from tmgcn_torch.models.gcn import KWGCN
     from tmgcn_torch.models.tmgcn import TMGCN, TMGCN2
     from tmgcn_torch.models.wdgcn import WDGCN
 
@@ -532,6 +556,12 @@ def _cls_problem(family: str, impl: str):
     kw = dict(n_slices=T, in_feat=2, spmm_impl=impl)
     if family == "wdgcn":
         return WDGCN(hidden_feat=(6, 3), **kw), None, adj, feats, edges, splits
+    if family == "gcn2":
+        return (KWGCN(hidden_feat=(6, 6, 3), nonlin2="selu", **kw), None, adj, feats, edges,
+                splits)
+    if family.startswith("evolvegcn"):
+        hidden = (6, 6, 3) if family.startswith("evolvegcn2") else (6, 3)
+        return _evolvegcn(family, T, hidden), None, adj, feats, edges, splits
     if family == "tmgcn":
         return TMGCN(hidden_feat=(6, 3), **kw), make_m_matrix(T, 3), adj, feats, edges, splits
     return (TMGCN2(hidden_feat=(6, 6, 3), nonlin2="selu", **kw), make_m_matrix(T, 3), adj,
@@ -544,6 +574,12 @@ CAPTURE_CASES = {
     "cls_tmgcn2_pallas": ("cls", "tmgcn2", "pallas"),
     "cls_wdgcn_jnp": ("cls", "wdgcn", "jnp"),
     "lp_wdgcn_jnp": ("lp", "wdgcn", "jnp"),
+    "cls_gcn2_pallas": ("cls", "gcn2", "pallas"),
+    "cls_evolvegcn1": ("cls", "evolvegcn", "jnp"),
+    "cls_evolvegcn2": ("cls", "evolvegcn2", "jnp"),
+    "cls_evolvegcn2_generic": ("cls", "evolvegcn2_generic", "jnp"),
+    "cls_evolvegcn1_generic": ("cls", "evolvegcn_generic", "jnp"),
+    "lp_evolvegcn1_generic": ("lp", "evolvegcn_generic", "jnp"),
 }
 
 
@@ -560,6 +596,7 @@ def test_captured_rows_match_eager(cuda_device, case, optimizer, monkeypatch):
     task, family, impl = CAPTURE_CASES[case]
     problem = _lp_problem if task == "lp" else _cls_problem
     model, M, adj, feats, edges, splits = problem(family, impl)
+    _generic_path(family, monkeypatch)
     variables = model.init(torch.Generator().manual_seed(0))
     opt = {"optimizer": "adam", "grad_clip": 1.0} if optimizer == "adam" else {}
     cfg = loop.TrainConfig(n_epochs=7, eval_every=3, **opt)

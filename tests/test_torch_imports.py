@@ -91,7 +91,7 @@ def test_cli_list(capsys):
 @pytest.mark.parametrize(
     "preset,kwargs",
     [
-        ("chess_evolvegcn2_cls", {}),
+        ("chess_evolvegcn2_cls", {"mesh_shape": (2, 1)}),
         ("chess_tmgcn_lp", {"checkpoint_dir": "ck"}),
         ("chess_tmgcn_cls", {"checkpoint_dir": "ck"}),
         ("chess_tmgcn_cls", {"mesh_shape": (2, 1)}),

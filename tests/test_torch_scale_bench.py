@@ -39,7 +39,8 @@ def test_inputs_match_the_tool(tool):
 
 @pytest.mark.parametrize(
     "argv",
-    [["--families", "tmgcn2"], ["--families", "evolvegcn"], ["--families", "wdgcn", "--l2-stream", "8"]],
+    [["--families", "tmgcn2"], ["--families", "evolvegcn,tmgcn2"],
+     ["--families", "wdgcn", "--l2-stream", "8"]],
 )
 def test_unported_families_raise(argv):
     with pytest.raises(NotImplementedError, match="ROADMAP"):

@@ -7,12 +7,12 @@ names, function names and public signatures follow ``tmgcn_tpu`` so each
 counterpart is found under the same path; the JAX package stays the
 reference the port is held against.
 
-Layout (the ported part so far: TM-GCN (1 and 2 layers) and WD-GCN, edge
-classification and link prediction):
+Layout (the ported part so far: TM-GCN (1 and 2 layers), KW-GCN,
+EvolveGCN-H and WD-GCN, edge classification and link prediction):
     core/        temporal sparse tensor container, M-matrix constructors
     ops/         SpMM, M-transform, degree features, edge readout
     kernels/     hand-written CUDA kernels (csrc/) and their wrappers
-    models/      TM-GCN, WD-GCN
+    models/      TM-GCN, KW-GCN, EvolveGCN-H, WD-GCN
     preprocess/  raw edge lists -> normalized temporal adjacency tensors
     tasks/       windows, negative sampling, adapters, metrics
     train/       training loop, losses, metric logging

@@ -8,6 +8,10 @@
         --spmm-impl pallas_bf16 --epochs 200
     python -m tmgcn_torch.cli run chess_tmgcn_lp --data-dir data/chess --epochs 200
     python -m tmgcn_torch.cli run chess_wdgcn_lp --data-dir data/chess --epochs 200
+    python -m tmgcn_torch.cli run chess_gcn_cls --data-dir data/chess \
+        --spmm-impl pallas --epochs 200           # KW-GCN; also chess_gcn_lp
+    python -m tmgcn_torch.cli run chess_evolvegcn_cls --data-dir data/chess --epochs 200
+                             # EvolveGCN-H; also chess_evolvegcn2_cls, chess_evolvegcn_lp
     python -m tmgcn_torch.cli run chess_tmgcn_cls --data-dir data/chess --epochs 5 \
         --profile prof/        # torch.profiler trace of the run: prof/trace.json
 

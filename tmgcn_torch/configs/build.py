@@ -1,6 +1,6 @@
 """Experiment assembly: config -> data -> adapter -> training run (port of
 tmgcn_tpu.configs.build: registry datasets, edge classification and link
-prediction with TM-GCN (1 or 2 layers) or WD-GCN).
+prediction with TM-GCN (1 or 2 layers), KW-GCN, EvolveGCN-H or WD-GCN).
 
 Turns an :class:`ExperimentConfig` into a run, reproducing the reference
 experiment-script semantics: tmgcn consumes the M-transformed windows Ct with shifted
@@ -22,6 +22,8 @@ import torch
 
 from tmgcn_torch.configs.schema import ExperimentConfig
 from tmgcn_torch.core.sparse import TemporalCOO
+from tmgcn_torch.models.evolvegcn import EvolveGCN
+from tmgcn_torch.models.gcn import KWGCN
 from tmgcn_torch.models.tmgcn import TMGCN, TMGCN2
 from tmgcn_torch.models.wdgcn import WDGCN
 from tmgcn_torch.ops.degree import degree_features_np
@@ -175,44 +177,53 @@ def build_data(
 
 
 def _check_ported(cfg: ExperimentConfig) -> None:
-    ported = cfg.task in ("edge_cls", "link_pred") and cfg.method in ("tmgcn", "wdgcn")
-    if not ported:
+    if cfg.task not in ("edge_cls", "link_pred"):
         raise NotImplementedError(
-            f"only TM-GCN and WD-GCN edge classification and link prediction are ported yet, not "
-            f"{cfg.method} ({cfg.n_layers} layers) {cfg.task} (ROADMAP queue 1)"
+            f"only edge classification and link prediction are ported yet, not {cfg.method} "
+            f"{cfg.task} (ROADMAP queue 1, item 11)"
         )
 
 
-def build_model(cfg: ExperimentConfig, n_slices: int, in_feat: int) -> TMGCN | TMGCN2 | WDGCN:
+def build_model(
+    cfg: ExperimentConfig, n_slices: int, in_feat: int
+) -> TMGCN | TMGCN2 | KWGCN | EvolveGCN | WDGCN:
     _check_ported(cfg)
+    hf = tuple(cfg.hidden_feat)
+    dtype = getattr(torch, cfg.dtype)
     if cfg.method == "wdgcn":
         return WDGCN(
-            n_slices=n_slices,
-            in_feat=in_feat,
-            hidden_feat=tuple(cfg.hidden_feat),
-            dtype=getattr(torch, cfg.dtype),
+            n_slices=n_slices, in_feat=in_feat, hidden_feat=hf, dtype=dtype,
             spmm_impl=cfg.spmm_impl,
         )
+    if cfg.method == "gcn":
+        return KWGCN(
+            n_slices=n_slices, in_feat=in_feat, hidden_feat=hf, nonlin2=cfg.nonlin2,
+            dtype=dtype, spmm_impl=cfg.spmm_impl,
+        )
+    if cfg.method == "evolvegcn":
+        # No spmm_impl, as in the JAX package: EvolveGCN propagates with
+        # the plain spmm.
+        return EvolveGCN(n_slices=n_slices, in_feat=in_feat, hidden_feat=hf, dtype=dtype)
     if cfg.n_layers == 2:
         return TMGCN2(
             n_slices=n_slices,
             in_feat=in_feat,
-            hidden_feat=tuple(cfg.hidden_feat),
+            hidden_feat=hf,
             condensed_W=cfg.condensed_W,
             use_Minv=cfg.use_Minv,
             apply_M_twice=cfg.apply_M_twice,
             apply_M_three_times=cfg.apply_M_three_times,
             nonlin2=cfg.nonlin2,
-            dtype=getattr(torch, cfg.dtype),
+            dtype=dtype,
             spmm_impl=cfg.spmm_impl,
         )
     return TMGCN(
         n_slices=n_slices,
         in_feat=in_feat,
-        hidden_feat=tuple(cfg.hidden_feat),
+        hidden_feat=hf,
         condensed_W=cfg.condensed_W,
         use_Minv=cfg.use_Minv,
-        dtype=getattr(torch, cfg.dtype),
+        dtype=dtype,
         spmm_impl=cfg.spmm_impl,
         readout=cfg.readout,
     )
@@ -224,9 +235,10 @@ def params_from_jax(tree: dict) -> dict:
     Takes a flat parameter dict, or a whole variable tree such as WD-GCN's
     ``{"params": {"W", "lstm": {...}}, "buffers": {...}}``, and returns the
     same tree of tensors. The ported models keep the JAX package's names
-    and layouts (TMGCN's W (F0, F1) and U (2·F1, C); TMGCN2's W1, W2 and
-    U (2·F2, C); WDGCN's W, per-gate
-    LSTM weights and frozen U, h_init, c_init), so each array is copied as
+    and layouts (TMGCN's W (F0, F1) and U (2·F1, C); TMGCN2's and KWGCN's
+    W1, W2 and U; EvolveGCN's ``cell1``/``cell2`` GRU cells and U, and its
+    frozen W_init1/W_init2; WDGCN's W, per-gate LSTM weights and frozen U,
+    h_init, c_init), so each array is copied as
     it is, dtype kept, onto the CPU; the training loop moves them to its
     device.
     """

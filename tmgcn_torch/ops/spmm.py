@@ -34,10 +34,14 @@ def _segment_sum(
     vals: torch.Tensor,
     n_out: int,
 ) -> torch.Tensor:
-    """out[r] = Σ_{i: rows[i] = r} vals[i] * flat_x[cols[i]]; rows sorted."""
+    """out[r] = Σ_{i: rows[i] = r} vals[i] * flat_x[cols[i]]; rows sorted.
+
+    The segment lengths come from a search of the sorted rows, not a
+    bincount, whose output size the host would have to read off the card
+    (that would stall, and break the capture of, a training step)."""
     gathered = flat_x.index_select(0, cols) * vals[:, None]
-    lengths = torch.bincount(rows, minlength=n_out)
-    return torch.segment_reduce(gathered, "sum", lengths=lengths, axis=0, unsafe=True)
+    bounds = torch.searchsorted(rows, torch.arange(n_out + 1, device=rows.device))
+    return torch.segment_reduce(gathered, "sum", lengths=bounds.diff(), axis=0, unsafe=True)
 
 
 class _SegmentSpmm(torch.autograd.Function):
@@ -55,6 +59,27 @@ class _SegmentSpmm(torch.autograd.Function):
         order = torch.argsort(cols, stable=True)
         dX = _segment_sum(dY, cols[order], rows[order], vals[order], ctx.n_in)
         return dX, None, None, None, None
+
+
+def spmm_slice(
+    rows: torch.Tensor,
+    cols: torch.Tensor,
+    vals: torch.Tensor,
+    x: torch.Tensor,
+    n_nodes: int,
+) -> torch.Tensor:
+    """One-slice SpMM: (P,) coo arrays x (N, F) dense -> (N, F).
+
+    The entries stably sorted by row (the padding, row 0 and value 0,
+    trails each slice), so each row sums its entries in stream order, as
+    the JAX package's ``segment_sum`` does; forward and backward are
+    sorted segment sums, with no atomics and no host sync.
+    """
+    rows = torch.as_tensor(rows, device=x.device).long()
+    order = torch.argsort(rows, stable=True)
+    cols = torch.as_tensor(cols, device=x.device).long()[order]
+    vals = torch.as_tensor(vals, device=x.device)[order].to(x.dtype)
+    return _SegmentSpmm.apply(x, rows[order], cols, vals, n_nodes)
 
 
 def pack_operator(A: TemporalCOO, impl: str):
@@ -114,13 +139,15 @@ def spmm(A, X: torch.Tensor, impl: str = "jnp") -> torch.Tensor:
     cols = torch.as_tensor(A.cols, device=device).long()
     vals = torch.as_tensor(A.vals, device=device).to(X.dtype)
     nnz = torch.as_tensor(A.nnz, device=device).long()
-    # Drop the padding (it trails each slice) so the global row stream
-    # t*N + row is sorted end to end.
+    # The padding trails each slice with value 0: pointed at the slice's
+    # last row, it keeps the global row stream t*N + row sorted end to end
+    # and adds only zeros, with no mask whose size the host must read.
     real = torch.arange(P, device=device)[None, :] < nnz[:, None]
     offsets = (torch.arange(T, device=device) * N)[:, None]
-    flat_rows = (rows + offsets)[real]
-    flat_cols = (cols + offsets)[real]
-    out = _SegmentSpmm.apply(X.reshape(T * N, F), flat_rows, flat_cols, vals[real], T * N)
+    flat_rows = torch.where(real, rows + offsets, offsets + N - 1).reshape(-1)
+    flat_cols = (cols + offsets).reshape(-1)
+    flat_vals = torch.where(real, vals, 0).reshape(-1)
+    out = _SegmentSpmm.apply(X.reshape(T * N, F), flat_rows, flat_cols, flat_vals, T * N)
     return out.reshape(T, N, F)
 
 

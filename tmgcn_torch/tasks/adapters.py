@@ -1,6 +1,6 @@
 """Model-family adapters: one calling convention across architectures
-(port of tmgcn_tpu.tasks.adapters: the TM-GCN (1 and 2 layers) and WD-GCN
-branches).
+(port of tmgcn_tpu.tasks.adapters: the edge branches of TM-GCN (1 and 2
+layers), KW-GCN, EvolveGCN-H and WD-GCN).
 
 Adapters prepare per-window data bundles on the device, once, and expose:
 
@@ -26,6 +26,18 @@ WD-GCN caches its propagation AX once per window (transposed to
 (T, F0, N)) and runs the LSTM and the edge readout every epoch; the
 readout's backward goes through the bundle's ``ReadoutPlan`` (K1, or K2
 past ``LANE_MAJOR_BYTES``) where one is built.
+
+KW-GCN caches AX as WD-GCN does: at 1 layer an epoch is the TM-GCN fast
+path's two matmuls on the endpoint rows; at 2 layers it runs the layer-2
+SpMM (the prepacked operator of the model's impl: K1 for ``"pallas"``)
+and the readout plan every epoch.
+
+EvolveGCN caches AX and takes the JAX adapter's path by its byte
+budgets: at 1 layer the gather-free path (the GRU-only weight loop and
+one-hot matmuls), at 2 layers the readout-restricted layer 2 with per-row
+slice weights, and past either budget (or with ``embed_dtype`` set) the
+model's own staged forward with the readout plan. Its carry is the
+evolved final weights, threaded train -> val -> test by the loops.
 """
 
 from __future__ import annotations
@@ -39,6 +51,8 @@ import torch
 from tmgcn_torch.core.sparse import TemporalCOO, as_numpy
 from tmgcn_torch.kernels import spmm_cuda
 from tmgcn_torch.models.common import nonlinearity
+from tmgcn_torch.models.evolvegcn import EvolveGCN, apply_slice_weights, evolve_weight_stack
+from tmgcn_torch.models.gcn import KWGCN
 from tmgcn_torch.models.tmgcn import TMGCN, TMGCN2
 from tmgcn_torch.models.wdgcn import WDGCN
 from tmgcn_torch.ops import spmm_blockdense, spmm_rowsplit
@@ -116,6 +130,7 @@ def _build_restricted_layer2(
     (uniq, used), the compacted output and input row ids.
     """
     device = bundle[cached_key].device
+    est = None
     if drop_last_slice:
         A = A.slice_window(0, A.n_slices - 1)
     T, N = A.n_slices, A.n_nodes
@@ -158,6 +173,9 @@ def _build_restricted_layer2(
             rows_c, cols_c, vals_c, n_in=len(used), n_out=len(uniq), k=4
         )
     bundle["l2op"] = op.to(device)
+    if est is not None:
+        # What the accelerator rule saw and picked, for the logs (not a tensor).
+        bundle["l2op_choice"] = {"operator": operator, "ratio": est["ratio"]}
     F0 = bundle[cached_key].shape[-1]
     bundle["l2_Hin"] = bundle[cached_key].reshape(T * N, F0)[
         torch.as_tensor(used, dtype=torch.long, device=device)
@@ -280,13 +298,168 @@ def _prepare_bundles(
     return bundles
 
 
-def _unique_bundles(bundles: dict[str, dict]):
-    """Each distinct bundle dict once (windows may share one)."""
+def _unique_windows(bundles: dict[str, dict]):
+    """(window, bundle) for each distinct bundle dict, first window first
+    (windows may share one)."""
     seen: set[int] = set()
-    for b in bundles.values():
-        if id(b) not in seen:
-            seen.add(id(b))
-            yield b
+    for w in WINDOWS:
+        if id(bundles[w]) not in seen:
+            seen.add(id(bundles[w]))
+            yield w, bundles[w]
+
+
+def _unique_bundles(bundles: dict[str, dict]):
+    """Each distinct bundle dict once."""
+    return (b for _, b in _unique_windows(bundles))
+
+
+# The JAX package's one-hot budgets for EvolveGCN's gather-free paths: the
+# (T, E) slice one-hot of the 1-layer path, and the (T, n_used + n_uniq)
+# one-hots of the restricted 2-layer path, in bytes. Past them it runs the
+# generic staged path with the readout plan. Chosen on a TPU and kept as
+# they are, so that both packages take the same path; re-deriving them for
+# the H100 is open (ROADMAP queue 2).
+ONEHOT_BUDGET_1LAYER = 128 << 20
+ONEHOT_BUDGET_RESTRICTED = 256 << 20
+
+
+def _evolvegcn_path(
+    model: EvolveGCN,
+    adj: dict[str, TemporalCOO],
+    edges: dict[str, np.ndarray],
+    drop_last_slice: bool,
+) -> str:
+    """"gather_free", "restricted" or "generic": the JAX adapter's choice,
+    from the same host-side byte counts (taken before anything is built)."""
+    def n_slices(w):
+        return adj[w].n_slices - (1 if drop_last_slice else 0)
+
+    onehot_bytes = max(n_slices(w) * np.asarray(edges[w]).shape[1] * 4 for w in WINDOWS)
+    same_dtype = model.store_dtype == model.dtype
+    if model.n_layers == 1:
+        if same_dtype and onehot_bytes <= ONEHOT_BUDGET_1LAYER:
+            return "gather_free"
+        return "generic"
+    if not same_dtype:
+        return "generic"
+    oh_bytes = 0
+    for w in WINDOWS:
+        A = adj[w]
+        e = np.asarray(edges[w], np.int64)
+        keys = np.concatenate([e[0] * A.n_nodes + e[1], e[0] * A.n_nodes + e[2]])
+        n_uniq = len(np.unique(keys))
+        # n_used <= nnz: the cheap upper bound, without flattening the stream.
+        n_used_bound = min(n_slices(w) * A.n_nodes, int(np.asarray(A.vals).size))
+        oh_bytes = max(oh_bytes, n_slices(w) * (n_uniq + n_used_bound) * 4)
+    return "restricted" if oh_bytes <= ONEHOT_BUDGET_RESTRICTED else "generic"
+
+
+def _slice_onehot(slice_ids: np.ndarray, n_slices: int, device) -> torch.Tensor:
+    """(T, n) float32 one-hot of each row's slice: ``W_stack @ onehot``
+    maps per-slice weights to rows exactly (one product by 1, the rest 0)."""
+    oh = np.zeros((n_slices, len(slice_ids)), np.float32)
+    oh[slice_ids, np.arange(len(slice_ids))] = 1.0
+    return torch.as_tensor(oh, device=device)
+
+
+def _evolvegcn_gather_free(model: EvolveGCN, bundles: dict, edges: dict) -> Callable:
+    """EvolveGCN 1-layer without gathers (the JAX adapter's fast path).
+
+    logits[e] = ax_src[e] @ (W_{t_e} @ U_src) + ax_trg[e] @ (W_{t_e} @
+    U_trg): an epoch is the GRU-only weight loop, two (C·F0, T) x (T, E)
+    one-hot matmuls that map slice weights to edges, and an elementwise
+    contraction over F0 — no (T, N, F1) embedding tensor, no gather, no
+    scatter. The endpoint rows are kept as (F0, E), the JAX layout, so the
+    contraction sums in its order.
+    """
+    for w, b in _unique_windows(bundles):
+        ax = b["cached_ax"]
+        T, N, F0 = ax.shape
+        e = np.asarray(edges[w], np.int64)
+        flat = ax.reshape(T * N, F0)
+        b["ax_srcT"] = flat[torch.as_tensor(e[0] * N + e[1], device=ax.device)].T.contiguous()
+        b["ax_trgT"] = flat[torch.as_tensor(e[0] * N + e[2], device=ax.device)].T.contiguous()
+        b["edge_slice_ohT"] = _slice_onehot(e[0], T, ax.device)
+
+    def apply(variables, bundle, carry):
+        p = variables["params"]
+        W0 = carry[0] if carry else variables["buffers"]["W_init1"]
+        W_fin, Ws = model.evolved_weights(variables, bundle["X"], W0)
+        dtype = model.dtype
+        U = p["U"].to(dtype)
+        F1 = Ws.shape[-1]
+        Ws = Ws.to(dtype)
+        oh = bundle["edge_slice_ohT"].to(dtype)
+        logitsT = None
+        for Upart, ax in ((U[:F1], bundle["ax_srcT"]), (U[F1:], bundle["ax_trgT"])):
+            Wpart = torch.einsum("tfk,kc->cft", Ws, Upart)  # (C, F0, T)
+            C, F0, T = Wpart.shape
+            We = (Wpart.reshape(C * F0, T) @ oh).reshape(C, F0, -1)
+            part = (We * ax.to(dtype)[None]).sum(1)  # (C, E)
+            logitsT = part if logitsT is None else logitsT + part
+        return logitsT.T, (W_fin,)
+
+    return apply
+
+
+def _evolvegcn_restricted(
+    model: EvolveGCN, bundles: dict, adj: dict, edges: dict, drop_last_slice: bool
+) -> Callable:
+    """EvolveGCN 2-layer with the readout-restricted layer 2 (the JAX
+    adapter's path for it).
+
+    The layer-2 SpMM A ⊛ H1 computes only the endpoint rows, as TM-GCN 2's
+    restricted path does, through the rectangular operator the ``auto``
+    rule picks; but W1 and W2 differ per slice here, so they are applied
+    row by row through (T, n_rows) one-hot matmuls. H1 still materializes
+    in full once an epoch (one batched matmul, no SpMM), because the
+    layer-2 top-k summaries score all N nodes
+    (evolvegcn_functions.py:180-188).
+    """
+    for w, b in _unique_windows(bundles):
+        uniq, used = _build_restricted_layer2(
+            b, adj[w], as_numpy(edges[w]), drop_last_slice, operator="auto",
+            cached_key="cached_ax",
+        )
+        T, N = b["cached_ax"].shape[:2]
+        device = b["cached_ax"].device
+        b["l2_HinT"] = b["l2_Hin"].T.contiguous()  # (F0, n_used)
+        b["l2_used_ohT"] = _slice_onehot(used // N, T, device)
+        b["l2_uniq_ohT"] = _slice_onehot(uniq // N, T, device)
+
+    def apply(variables, bundle, carry):
+        p, b0 = variables["params"], variables["buffers"]
+        W0 = carry[0] if carry else b0["W_init1"]
+        W20 = carry[1] if carry else b0["W_init2"]
+        dtype = model.dtype
+        W_fin, W1s = evolve_weight_stack(p["cell1"], bundle["X"], W0)
+        H1 = torch.relu(apply_slice_weights(bundle["cached_ax"], W1s))
+        W2_fin, W2s = evolve_weight_stack(p["cell2"], H1, W20)
+        # Layer 1 at the used input rows with per-row slice weights:
+        # Wrow[f, k, u] = W1s[t_u, f, k], one one-hot matmul.
+        W1s = W1s.to(dtype)
+        F0, F1 = W1s.shape[1], W1s.shape[2]
+        Wrow = (W1s.permute(1, 2, 0).reshape(F0 * F1, -1) @ bundle["l2_used_ohT"].to(dtype))
+        Wrow = Wrow.reshape(F0, F1, -1)
+        HinT = bundle["l2_HinT"].to(dtype)
+        H1uT = torch.relu((Wrow * HinT[:, None, :]).sum(0))  # (F1, n_used)
+        Zc = bundle["l2op"](H1uT.T).to(dtype)  # (n_uniq, F1): endpoint rows only
+        # W2_t @ U folded before the per-edge gathers, per slice.
+        U = p["U"].to(dtype)
+        W2s = W2s.to(dtype)
+        F2 = W2s.shape[-1]
+        oh_uniq = bundle["l2_uniq_ohT"].to(dtype)
+        ZcT = Zc.T
+        logitsT = None
+        for Upart, idx in ((U[:F2], bundle["l2_src"]), (U[F2:], bundle["l2_trg"])):
+            WU = torch.einsum("tfk,kc->fct", W2s, Upart)  # (F1, C, T)
+            F1b, C = WU.shape[0], WU.shape[1]
+            Wu = (WU.reshape(F1b * C, -1) @ oh_uniq).reshape(F1b, C, -1)
+            part = (Wu * ZcT[:, None, :]).sum(0)[:, idx]  # (C, E)
+            logitsT = part if logitsT is None else logitsT + part
+        return logitsT.T, (W_fin, W2_fin)
+
+    return apply
 
 
 def make_edge_adapter(
@@ -303,9 +476,9 @@ def make_edge_adapter(
     """Adapter for edge-output models on prepared windows.
 
     Args:
-        model: a 1-layer condensed TMGCN, a TMGCN2 or a WDGCN (the
-            branches ported so far).
-        adj: per-window adjacency (Ct for TM-GCN, C for WD-GCN).
+        model: a TMGCN (1-layer condensed), TMGCN2, KWGCN, EvolveGCN or
+            WDGCN.
+        adj: per-window adjacency (Ct for TM-GCN, C for the baselines).
         feats: per-window (T, N, F) features.
         edges: per-window (3, E) model-input edges.
         M: mixing matrix (TM-GCN only).
@@ -314,20 +487,32 @@ def make_edge_adapter(
         l2_stream_chunks: TMGCN2 only; not ported yet.
         device: where the bundles live and the model runs (no default:
             the entry points resolve it, cuda unless asked otherwise).
+
+    EvolveGCN's ``apply`` returns its evolved final weights as the carry,
+    and takes them as the next window's initial weights (``()``: the
+    frozen W_init buffers).
     """
     tmgcn1 = isinstance(model, TMGCN) and model.condensed_W and not model.use_Minv
     tmgcn2 = isinstance(model, TMGCN2)
     restricted2 = (
         tmgcn2 and model.condensed_W and not model.use_Minv and not model.apply_M_twice
     )
-    if not (tmgcn1 or tmgcn2 or isinstance(model, WDGCN)):
+    kwgcn1 = isinstance(model, KWGCN) and model.n_layers == 1
+    evolve = (
+        _evolvegcn_path(model, adj, edges, drop_last_slice)
+        if isinstance(model, EvolveGCN) else None
+    )
+    if isinstance(model, TMGCN) and not tmgcn1:
         raise NotImplementedError(
-            "only the TM-GCN (1-layer condensed, 2-layer) and WD-GCN adapters are ported yet "
-            "(ROADMAP queue 1, items 8-9)"
+            "the generic 1-layer TM-GCN adapter (condensed_W=False or use_Minv) is not "
+            "ported yet (ROADMAP queue 1, item 4)"
         )
+    if not isinstance(model, (TMGCN, TMGCN2, KWGCN, EvolveGCN, WDGCN)):
+        raise TypeError(f"unsupported edge model: {type(model).__name__}")
     if l2_stream_chunks:
         raise NotImplementedError("streamed layer 2 is not ported yet (ROADMAP queue 1, item 12)")
-    impl = model.spmm_impl
+    # EvolveGCN names no impl: the JAX package's propagation is plain spmm.
+    impl = getattr(model, "spmm_impl", "jnp")
     # The restricted path runs the square operator once (the cached
     # propagation, through spmm(impl=...)), so it is not prepacked; the
     # impl goes to the restricted layer-2 operator instead.
@@ -335,18 +520,66 @@ def make_edge_adapter(
     device = torch.device(device)
     bundles = _prepare_bundles(
         adj, feats, edges, M, drop_last_slice, spmm_operator, device,
-        readout=not (tmgcn1 or restricted2),
+        readout=not (tmgcn1 or restricted2 or kwgcn1 or evolve in ("gather_free", "restricted")),
     )
 
     def init(generator):
         return model.init(generator, device)
+
+    if isinstance(model, EvolveGCN):
+        # Layer-1 propagation is parameter-independent: cache A@X, so the
+        # weight evolution keeps only parameter-dependent SpMMs (none for
+        # 1 layer, layer 2's for 2 layers).
+        with torch.no_grad():
+            for b in _unique_bundles(bundles):
+                b["cached_ax"] = model.propagate(b["adj"], b["X"])
+            if evolve == "gather_free":
+                apply = _evolvegcn_gather_free(model, bundles, edges)
+            elif evolve == "restricted":
+                apply = _evolvegcn_restricted(model, bundles, adj, edges, drop_last_slice)
+        if evolve == "generic":
+
+            def apply(variables, bundle, carry):
+                return model.apply(
+                    variables, bundle["adj"], bundle["X"], bundle["edges"], *carry,
+                    AX=bundle["cached_ax"], readout_op=_readout_fn(bundle),
+                )
+
+        return ModelAdapter(init, apply, bundles, device)
+
+    if isinstance(model, (KWGCN, WDGCN)):
+        with torch.no_grad():
+            for b in _unique_bundles(bundles):
+                b["cached"] = model.propagate(b["adj"], b["X"])
+
+    if kwgcn1:
+        # 1 layer: keep only the endpoint rows: training epochs run no SpMM.
+        with torch.no_grad():
+            for b in _unique_bundles(bundles):
+                _cache_edge_rows(b, model.dtype)
+
+        def apply(variables, bundle, carry):
+            p = variables["params"]
+            return _fast_edge_logits(p["W1"], p["U"], bundle, model.dtype), carry
+
+        return ModelAdapter(init, apply, bundles, device)
+
+    if isinstance(model, KWGCN):
+
+        def apply(variables, bundle, carry):
+            out = model.apply(
+                variables, bundle["adj"], bundle["X"], bundle["edges"], bundle["cached"],
+                readout_op=_readout_fn(bundle),
+            )
+            return out, carry
+
+        return ModelAdapter(init, apply, bundles, device)
 
     if isinstance(model, WDGCN):
         # The cached propagation, transposed to (T, F0, N): the forward
         # then runs on the (F, N) layout (models/wdgcn.lstm_scan_t).
         with torch.no_grad():
             for b in _unique_bundles(bundles):
-                b["cached"] = model.propagate(b["adj"], b["X"])
                 b["cached_t"] = b["cached"].transpose(1, 2).contiguous()
 
         def apply(variables, bundle, carry):
@@ -370,14 +603,10 @@ def make_edge_adapter(
 
     if restricted2:
         with torch.no_grad():
-            done: set[int] = set()
-            for w in WINDOWS:
-                # Windows that share a bundle share adj and edges: build once.
-                if id(bundles[w]) in done:
-                    continue
-                done.add(id(bundles[w]))
+            # Windows that share a bundle share adj and edges: build once.
+            for w, b in _unique_windows(bundles):
                 _build_restricted_layer2(
-                    bundles[w], adj[w], as_numpy(edges[w]), drop_last_slice,
+                    b, adj[w], as_numpy(edges[w]), drop_last_slice,
                     operator=impl if impl in OPERATOR_IMPLS else "auto",
                 )
 

@@ -176,9 +176,10 @@ class _Step:
     the step's stats — [loss] (and tp, fp, fn with ``with_confusion``) of the
     pre-update logits, float64 — into row ``slot`` of ``stats``, a ring of
     ``capacity`` rows on the device, and advances ``slot``; and returns (out,
-    carry): those logits after ``logit_transform``, detached, and the
-    adapter's carry. Nothing in it reads the device from the host or keeps
-    state in Python, so each replay of its capture is the next epoch.
+    carry): those logits after ``logit_transform`` and the adapter's carry
+    (EvolveGCN's evolved final weights, which the evaluation windows start
+    from), both detached. Nothing in it reads the device from the host or
+    keeps state in Python, so each replay of its capture is the next epoch.
     """
 
     def __init__(self, adapter: ModelAdapter, variables: dict, opt: _Optimizer,
@@ -210,7 +211,7 @@ class _Step:
             stats.extend(c.double() for c in _confusion(out, self.tgt))
         self.stats.index_copy_(0, self.slot, torch.stack(stats)[None])
         self.slot.add_(1).remainder_(self.capacity)
-        return out, carry
+        return out, tuple(c.detach() for c in carry)
 
 
 class _EagerChunks:

@@ -2,9 +2,10 @@
 
     python -m tmgcn_torch.utils.profile_slice [PRESET [SPMM_IMPL]]
 
-PRESET is chess_tmgcn_cls (the default) or chess_tmgcn2_cls, each run with
-spmm_impl="pallas" unless SPMM_IMPL names another, or chess_wdgcn_cls or
-chess_wdgcn_lp (the preset's own spmm_impl). Builds the preset's
+PRESET is chess_tmgcn_cls (the default), chess_tmgcn2_cls or chess_gcn_cls,
+each run with spmm_impl="pallas" unless SPMM_IMPL names another, or
+chess_wdgcn_cls, chess_wdgcn_lp, chess_evolvegcn_cls, chess_evolvegcn2_cls
+or chess_evolvegcn_lp (the preset's own spmm_impl). Builds the preset's
 experiment once (device cuda, data in data/chess), warms the loop up with
 one run, then:
 
@@ -45,8 +46,12 @@ TRACED_EPOCHS = 21
 PRESETS = {
     "chess_tmgcn_cls": {"spmm_impl": "pallas"},
     "chess_tmgcn2_cls": {"spmm_impl": "pallas"},
+    "chess_gcn_cls": {"spmm_impl": "pallas"},
     "chess_wdgcn_cls": {},
     "chess_wdgcn_lp": {},
+    "chess_evolvegcn_cls": {},
+    "chess_evolvegcn2_cls": {},
+    "chess_evolvegcn_lp": {},
 }
 
 

@@ -13,11 +13,14 @@ device call:
         [--out FILE] [--device cuda]
 
 Prints ms/epoch and labelled edges/s for each family, then one JSON line.
-Families ported: ``tmgcn1`` (1-layer TM-GCN, hidden (6, 2)) and ``wdgcn``
-(WD-GCN, hidden (6, 2)). At 500k nodes x 64 slices the WD-GCN readout
-plan's T·N = 32M rows pass ``LANE_MAJOR_BYTES``, so every training step
-runs the readout backward through K2. ``tmgcn2``, ``evolvegcn`` and
-``--l2-stream`` raise NotImplementedError naming their ROADMAP item.
+Families ported: ``tmgcn1`` (1-layer TM-GCN, hidden (6, 2)), ``wdgcn``
+(WD-GCN, hidden (6, 2)) and ``evolvegcn`` (EvolveGCN-H, hidden (6, 2)). At
+500k nodes x 64 slices the readout plan's T·N = 32M rows pass
+``LANE_MAJOR_BYTES``, so every WD-GCN training step runs the readout
+backward through K2; so does every EvolveGCN step, whose (T, E) slice
+one-hot (244 MiB) is over the gather-free path's budget, so it runs the
+generic path with the plan. ``tmgcn2`` and ``--l2-stream`` raise
+NotImplementedError naming their ROADMAP item.
 
 The flags and their defaults are the tool's own, except ``--out``: the
 tool writes results/scale_bench.json, where the JAX package keeps its
@@ -44,7 +47,6 @@ from tmgcn_torch.tasks.windows import EdgeSplit
 # Families of tools/bench_scale.py not ported yet, and their ROADMAP items.
 _NOT_PORTED = {
     "tmgcn2": "queue 1, item 12: the family's 1M-node size runs the streamed layer 2",
-    "evolvegcn": "queue 1, item 9",
 }
 _NAMES = {"tmgcn1": "one_layer", "tmgcn2": "two_layer", "evolvegcn": "evolvegcn",
           "wdgcn": "wdgcn"}
@@ -95,6 +97,7 @@ def _check_family(fam: str) -> None:
 
 def build_model(fam: str, n_slices: int, f_in: int, M: np.ndarray):
     """(model, M for the adapter) of one family."""
+    from tmgcn_torch.models.evolvegcn import EvolveGCN
     from tmgcn_torch.models.tmgcn import TMGCN
     from tmgcn_torch.models.wdgcn import WDGCN
 
@@ -103,6 +106,8 @@ def build_model(fam: str, n_slices: int, f_in: int, M: np.ndarray):
         return TMGCN(n_slices=n_slices, in_feat=f_in, hidden_feat=(6, 2)), M
     if fam == "wdgcn":
         return WDGCN(n_slices=n_slices, in_feat=f_in, hidden_feat=(6, 2)), None
+    if fam == "evolvegcn":
+        return EvolveGCN(n_slices=n_slices, in_feat=f_in, hidden_feat=(6, 2)), None
 
 
 def _sync(device: torch.device) -> None:
