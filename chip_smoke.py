@@ -140,10 +140,29 @@ non-zero, and nothing falls back to the CPU:
                   evaluation logits allow once their tied edges go either
                   way (the GRU's saturated weights cancel some logits
                   exactly);
+               m. regression and SBM: K1 at seir_wdgcn_reg_tuned's packing
+                  (the SEIR train window's Ct, 80 x 200 rows, F = 5)
+                  against its plain version, the operator against the
+                  plain spmm and torch.sparse.mm, timed beside its bound;
+                  then ``run_experiment`` of seir_tmgcn_reg_tuned (3 K1,
+                  the cached propagation), seir_evolvegcn_reg_tuned (no
+                  kernel) and seir_wdgcn_reg_tuned (302 K1: its
+                  propagation once a step and for val and test), 300
+                  epochs each, losses and val/test L1 finite, a warm rerun
+                  and the eager loop bitwise equal, the first 5 epochs'
+                  losses against the CPU's plain path (rtol 1e-4) and a
+                  5-epoch run's L1 and L1 ratio against the CPU's (rtol
+                  1e-3); sbm_tmgcn_lp_tuned (3 K1) and
+                  sbm_evolvegcn_lp_tuned (the generic path: K1 in the
+                  readout plan's backward once a step) at full width (1,000
+                  nodes, 50 slices, every LP edge), 300 epochs cut to 100,
+                  each with a warm rerun, vs eager, 5 epochs against the
+                  CPU; the host scoring of one SBM evaluation epoch;
   8. capture — chess_tmgcn_cls (pallas), chess_tmgcn2_cls (pallas and the
                preset's jnp), chess_wdgcn_cls, chess_wdgcn_lp,
-               chess_evolvegcn_cls, chess_evolvegcn2_cls and
-               chess_evolvegcn_lp: plain
+               chess_evolvegcn_cls, chess_evolvegcn2_cls,
+               chess_evolvegcn_lp, seir_wdgcn_reg_tuned,
+               seir_tmgcn_reg_tuned and seir_evolvegcn_reg_tuned: plain
                epochs captured and eager, timed in turns as bench.py times
                a chunk (a warm chunk, the chunk grown until a round covers
                0.25 s, the median of 5 rounds, with best, max and spread),
@@ -205,6 +224,9 @@ SCALE = {"n_nodes": 500_000, "n_slices": 64, "nnz_per_slice": 250_000,
          "n_edges": 1_000_000, "band": 20}
 SCALE_N_TIMED = 12  # -> 3 warm-up and 3 timed steps (scale_bench's rule)
 SCALE_TRACED_STEPS = 3
+# The SBM presets' 300 epochs cut to 100: each evaluation epoch scores some
+# 6.6M LP edges on the host (seconds), and eval_every is 50.
+SBM_EPOCHS = 100
 
 
 @contextlib.contextmanager
@@ -222,7 +244,9 @@ def _data_loaded_once():
     def once(cfg, data_dir=None, artifact=None):
         key = (cfg.dataset, cfg.method == "tmgcn", cfg.task, cfg.same_block_size, cfg.seed,
                cfg.beta1, cfg.beta2, cfg.cutoff, cfg.standardize_features, str(data_dir),
-               str(artifact))
+               str(artifact), cfg.sbm_n_nodes, cfg.sbm_n_slices, cfg.sbm_node_change,
+               cfg.sbm_normalize, cfg.sbm_features, cfg.seir_n_nodes, cfg.seir_n_slices,
+               cfg.seir_out_idx, cfg.seir_normalize)
         if key not in loaded:
             loaded[key] = build_data(cfg, data_dir=data_dir, artifact=artifact)
         return loaded[key]
@@ -573,7 +597,7 @@ def _chess_wdgcn_lp_train_edges():
     return edges, data.spec.s_train - 1, data.adj["train"].n_nodes
 
 
-def _lp_eval_seconds(np, same_block: bool) -> dict:
+def _lp_eval_seconds(np, splits: dict) -> dict:
     """Host seconds of one LP evaluation epoch's scoring (map_mrr and the
     loss of the train window's model edges and of val's and test's scored
     edges), on logits made from a seed: the part of an evaluation epoch that
@@ -582,7 +606,7 @@ def _lp_eval_seconds(np, same_block: bool) -> dict:
 
     rng = np.random.default_rng(0)
     out = {}
-    for w, s in _chess_lp_splits(same_block).items():
+    for w, s in splits.items():
         if w == "train" or s.n_eval_tail is None:
             keep = s.edges[0] != 0
             tgt, e = s.target[keep], s.edges[:, keep]
@@ -1727,7 +1751,7 @@ def phase_lp(torch, np, tk) -> dict[str, tuple]:
     counts["chess_wdgcn_lp"] = _run_slice(torch, np, tk, wd, e_train, (EPOCHS, 0, 0, 0, 0, 0, 0),
                                           vs_eager=True)
     for name, same_block in (("chess_tmgcn_lp", True), ("chess_wdgcn_lp", False)):
-        sec = _lp_eval_seconds(np, same_block)
+        sec = _lp_eval_seconds(np, _chess_lp_splits(same_block))
         print(f"{name}: host scoring of one evaluation epoch {sum(sec.values()):.3f} s "
               f"(map_mrr and loss; train {sec['train']:.3f}, val {sec['val']:.3f}, "
               f"test {sec['test']:.3f} s)")
@@ -1808,12 +1832,158 @@ def phase_evolvegcn(torch, np, tk, e_train: int) -> dict[str, tuple]:
     return counts
 
 
-# The chess paths timed captured against eager: (preset, spmm_impl or
-# None for the preset's own).
+def phase_k1_seir(torch, np) -> tuple[dict, float]:
+    """K1 at seir_wdgcn_reg_tuned's packing: the SEIR train window's Ct (80
+    slices x 200 nodes, the prepacked operator of spmm_impl="pallas") times
+    the window's standardized features, F = 5: the kernel against its plain
+    version and torch.sparse.mm, the operator against the plain spmm,
+    bitwise repeat, times beside the bound. The path's backward never runs
+    (the features are data)."""
+    from tmgcn_torch.configs.build import build_data
+    from tmgcn_torch.configs.presets import get_preset
+    from tmgcn_torch.kernels import spmm_cuda as tk
+    from tmgcn_torch.ops.spmm import spmm
+
+    dev = torch.device(DEVICE)
+    k1, k1p = tk.windowed_segment_matmul, tk.windowed_segment_matmul_reference
+    data = build_data(get_preset("seir_wdgcn_reg_tuned"))
+    Ct = data.adj["train"]
+    op = tk.make_operator(Ct).to(dev)
+    X = torch.as_tensor(data.feats["train"], dtype=torch.float32, device=dev)
+    T, N, F = X.shape
+    n_real = int(np.asarray(Ct.nnz).sum())
+    name = "K1 seir_wdgcn_reg_tuned propagation"
+    ref = spmm(Ct.to(dev), X)
+    err, tol = _max_err(op(X), ref)
+    check(err <= tol, f"{name}: the operator against the plain spmm: {err} > {tol}")
+    p = op.packed
+    flat = X.reshape(T * N, F)
+    gathered = flat[p.cols.long().reshape(-1)].reshape(p.n_chunks, p.chunk, F).contiguous()
+    max_err = max(err, _check_kernel(torch, k1, k1p, p, gathered, lambda: None, name))
+    csr = _packing_csr(torch, p, T * N)
+    err, tol = _max_err(k1(p, gathered)[: T * N], torch.sparse.mm(csr, flat)[: T * N])
+    check(err <= tol, f"{name} vs torch.sparse.mm: {err} > {tol}")
+    out = {
+        **_time_shape(torch, k1, k1p, p, gathered, F, n_real, None,
+                      lambda: torch.sparse.mm(csr, flat), name),
+        "shape": f"seir_wdgcn_reg_tuned propagation (F={F}, {n_real:,} entries into {T} x {N} "
+                 f"rows; library gather included)",
+    }
+    del op, X, gathered, csr
+    torch.cuda.empty_cache()
+    return out, max(max_err, err)
+
+
+REG_KEYS = ("train_loss", "val_l1", "val_l1_ratio", "test_l1", "test_l1_ratio")
+
+
+def _same_regression(np, a: dict, b: dict) -> bool:
+    return all(np.array_equal(a[k], b[k], equal_nan=True) for k in REG_KEYS)
+
+
+def _run_regression_slice(torch, np, tk, cfg, expected: tuple) -> tuple:
+    """A regression preset's own epochs on cuda (counted): losses and val/test
+    L1 finite; a warm rerun and the eager loop with the same result, bitwise
+    (the eager loop with the same launches); the first 5 epochs' losses
+    against the CPU's plain path (rtol 1e-4), and a 5-epoch run's L1 and L1
+    ratio against the CPU's (rtol 1e-3)."""
+    from tmgcn_torch.configs.build import run_experiment
+
+    name = f"{cfg.name} ({cfg.spmm_impl})"
+    epochs = cfg.n_epochs
+
+    def run(n, device=DEVICE):
+        out = run_experiment(cfg, n_epochs=n, verbose=False, device=device)
+        check(list(out["results"]) == [(0, None)], f"{name}: results keyed {list(out['results'])}")
+        return out["results"][(0, None)], out["seconds"]
+
+    (res, sec), launches = _counted(tk, lambda: run(epochs))
+    check(launches == expected,
+          f"{name}: {COUNTED} launched {launches} times on the main path, expected {expected}")
+    check(res["train_loss"].shape == (epochs,) and bool(np.all(np.isfinite(res["train_loss"]))),
+          f"{name}: a training loss is not finite")
+    check(all(np.isfinite(res[k]) for k in REG_KEYS[1:]), f"{name}: a val/test L1 is not finite")
+    print(f"slice {name} cuda, first run: {epochs} epochs, {COUNTED} launches {launches}; data "
+          f"{sec['data']:.3f} s, adapter {sec['adapter']:.3f} s, train {sec['train']:.3f} s "
+          f"({1e3 * sec['train'] / epochs:.6f} ms/epoch with the process's first launches)")
+    print(f"slice {name} result: train loss {res['train_loss'][0]:.6f} -> "
+          f"{res['train_loss'][-1]:.6f} | val L1 {res['val_l1']:.6f} ratio "
+          f"{res['val_l1_ratio']:.6f} | test L1 {res['test_l1']:.6f} ratio "
+          f"{res['test_l1_ratio']:.6f}")
+    again, sec = run(epochs)
+    check(_same_regression(np, again, res), f"{name}: a repeated run gave another result")
+    print(f"slice {name} warm run: {1e3 * sec['train'] / epochs:.6f} ms/epoch ({epochs} epochs, "
+          f"val and test scored once)")
+    with _eager_loop():
+        (eager, sec), eager_launches = _counted(tk, lambda: run(epochs))
+    check(_same_regression(np, eager, res),
+          f"{name}: the captured loop's result differs from the eager loop's")
+    check(eager_launches == launches,
+          f"{name}: the eager loop launched {eager_launches}, the captured {launches}")
+    print(f"slice {name} captured vs eager loop, {epochs} epochs: results bitwise equal, "
+          f"{COUNTED} launches {eager_launches} in both; eager train "
+          f"{1e3 * sec['train'] / epochs:.6f} ms/epoch")
+    ref, _ = run(REF_EPOCHS, "cpu")
+    short, _ = run(REF_EPOCHS)
+    check(bool(np.allclose(res["train_loss"][:REF_EPOCHS], ref["train_loss"], rtol=1e-4, atol=0)),
+          f"{name}: losses differ from the CPU plain path: {res['train_loss'][:REF_EPOCHS]} vs "
+          f"{ref['train_loss']}")
+    for k in REG_KEYS[1:]:
+        check(bool(np.isclose(short[k], ref[k], rtol=1e-3, atol=0)),
+              f"{name}: {k} {short[k]} of a {REF_EPOCHS}-epoch run differs from the CPU's {ref[k]}")
+    print(f"slice {name} vs CPU plain path, {REF_EPOCHS} epochs: losses within rtol 1e-4, "
+          f"val/test L1 and L1 ratio within rtol 1e-3")
+    return launches
+
+
+def _sbm_splits(cfg):
+    from tmgcn_torch.configs.build import build_data
+    from tmgcn_torch.tasks.windows import split_data_link_prediction
+
+    data = build_data(cfg)
+    return split_data_link_prediction(data.lp_edges, data.lp_labels, data.spec)
+
+
+def phase_synthetic(torch, np, tk) -> dict[str, tuple]:
+    """The three SEIR regression presets (_tuned: "pallas" where the model
+    takes an impl) and the two SBM link-prediction _tuned presets, through
+    run_experiment: launch counts, warm reruns, the eager loop, the CPU's
+    plain path; the host scoring of one SBM evaluation epoch."""
+    from tmgcn_torch.configs.presets import get_preset
+
+    counts = {}
+    # K1: TM-GCN's cached propagation of the three windows; EvolveGCN none
+    # (the plain spmm); WD-GCN its propagation once a step and once for each
+    # of val and test.
+    for name, k1 in (("seir_tmgcn_reg_tuned", 3), ("seir_evolvegcn_reg_tuned", 0),
+                     ("seir_wdgcn_reg_tuned", None)):
+        cfg = get_preset(name)
+        if k1 is None:
+            k1 = cfg.n_epochs + 2
+        counts[name] = _run_regression_slice(torch, np, tk, cfg, (k1, 0, 0, 0, 0, 0, 0))
+    # K1: sbm_tmgcn_lp_tuned's cached propagation of the three windows;
+    # sbm_evolvegcn_lp_tuned's readout plan backward once a step (its slice
+    # one-hot is far over the gather-free budget: the generic path).
+    for name, k1 in (("sbm_tmgcn_lp_tuned", 3), ("sbm_evolvegcn_lp_tuned", SBM_EPOCHS)):
+        cfg = get_preset(name)
+        check(cfg.spmm_impl == "pallas", f"{name} is expected to name spmm_impl pallas")
+        splits = _sbm_splits(cfg)
+        counts[name] = _run_slice(torch, np, tk, cfg, splits["train"].model_edges.shape[1],
+                                  (k1, 0, 0, 0, 0, 0, 0), epochs=SBM_EPOCHS, vs_eager=True)
+    sec = _lp_eval_seconds(np, _sbm_splits(get_preset("sbm_tmgcn_lp_tuned")))
+    print(f"sbm_*_lp_tuned: host scoring of one evaluation epoch {sum(sec.values()):.3f} s "
+          f"(map_mrr and loss; train {sec['train']:.3f}, val {sec['val']:.3f}, "
+          f"test {sec['test']:.3f} s)")
+    return counts
+
+
+# The paths timed captured against eager: (preset, spmm_impl or None for
+# the preset's own).
 TIMED_PATHS = (("chess_tmgcn_cls", "pallas"), ("chess_tmgcn2_cls", "pallas"),
                ("chess_tmgcn2_cls", "jnp"), ("chess_wdgcn_cls", None), ("chess_wdgcn_lp", None),
                ("chess_evolvegcn_cls", None), ("chess_evolvegcn2_cls", None),
-               ("chess_evolvegcn_lp", None))
+               ("chess_evolvegcn_lp", None), ("seir_wdgcn_reg_tuned", None),
+               ("seir_tmgcn_reg_tuned", None), ("seir_evolvegcn_reg_tuned", None))
 
 
 TIMED_PROBE = 5
@@ -1828,7 +1998,7 @@ def _print_times(what: str, times: dict, card: str, unit: str = "epoch") -> None
 
 
 def phase_capture_timing(torch, card: str) -> dict:
-    """Each chess path's plain epochs, captured (as the loop runs them) and
+    """Each timed path's plain epochs, captured (as the loop runs them) and
     eager (the loop's reference chunks), timed in turns in this process as
     bench.py times a chunk (profile_slice.timed_chunks); then a warm captured
     chunk traced as profile_slice traces it: device ms per epoch and the
@@ -1892,7 +2062,8 @@ def _phases(np, torch, tk, scale_bench) -> int:
         k1["lp_readout_backward"], lp_err = phase_k1_lp(torch, np)
         kwgcn2, kw_err = phase_k1_kwgcn(torch, np)
         k1.update(kwgcn2)
-        k1["max_abs_err"] = max(k1["max_abs_err"], lp_err, kw_err)
+        k1["seir_wdgcn_reg"], seir_err = phase_k1_seir(torch, np)
+        k1["max_abs_err"] = max(k1["max_abs_err"], lp_err, kw_err, seir_err)
     t0 = time.perf_counter()
     inputs = scale_bench.build_inputs(**SCALE)
     t_scale_build = time.perf_counter() - t0
@@ -1920,6 +2091,8 @@ def _phases(np, torch, tk, scale_bench) -> int:
     for name, phase in (("KW-GCN", phase_gcn), ("EvolveGCN", phase_evolvegcn)):
         with _timed(f"paths: {name}"):
             by_path.update(phase(torch, np, tk, e_train))
+    with _timed("paths: regression and SBM"):
+        by_path.update(phase_synthetic(torch, np, tk))
     by_path.update(fast_counts)
     with _timed("capture timing"):
         profiles = phase_capture_timing(torch, card)
@@ -1937,7 +2110,8 @@ def _phases(np, torch, tk, scale_bench) -> int:
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
     extra = ("shape", "launches_by_path", "train_window", "lp_readout_backward", "restricted_forward",
-             "restricted_backward", "kwgcn2_forward", "kwgcn2_backward", "cached_propagation",
+             "restricted_backward", "kwgcn2_forward", "kwgcn2_backward", "seir_wdgcn_reg",
+             "cached_propagation",
              "k1_at_scale_packing_ms",
              "readout_backward_ops_ms", "spmm_bench_r1", "spmm_bench_chess2")
     print(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s")

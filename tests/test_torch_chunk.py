@@ -514,7 +514,7 @@ def test_trial_chunks_run_the_step_that_run_trial_trains(task, case):
 
 
 @pytest.mark.parametrize("kwargs,match", [
-    ({"task": "regression"}, "task"),
+    ({"task": "node_cls"}, "task"),
     ({"task": "edge_cls", "loss_type": "sigmoid"}, "softmax"),
     ({"task": "link_pred", "loss_type": "hinge"}, "loss_type"),
 ])

@@ -659,3 +659,71 @@ def test_a_host_sync_in_the_step_raises(cuda_device):
     with pytest.raises(RuntimeError, match="synchroniz"):
         chunks(2)
     assert chunks.graph is None
+
+
+def _synthetic_runs(cuda_device, cfg, n_epochs, monkeypatch):
+    """run_experiment of a SEIR or SBM config on the card, captured, then
+    with the loop's eager chunks: (captured result, eager result, K1
+    launches of each)."""
+    from tmgcn_torch.configs import build
+    from tmgcn_torch.train import loop
+
+    def run():
+        before = tk.windowed_segment_matmul.launches
+        out = build.run_experiment(cfg, n_epochs=n_epochs, verbose=False, device=cuda_device)
+        (res,) = out["results"].values()
+        return res, tk.windowed_segment_matmul.launches - before
+
+    captured, n_captured = run()
+    with monkeypatch.context() as m:
+        m.setattr(loop, "_chunks", loop._EagerChunks)
+        eager, n_eager = run()
+    return captured, eager, n_captured, n_eager
+
+
+# K1 launches of each regression preset in 7 epochs: TM-GCN's cached
+# propagation of the three windows; EvolveGCN none (the plain spmm); WD-GCN
+# its propagation once a step and once for each of val and test.
+REGRESSION_K1 = {"seir_tmgcn_reg_tuned": 3, "seir_evolvegcn_reg_tuned": 0,
+                 "seir_wdgcn_reg_tuned": 7 + 2}
+
+
+@pytest.mark.parametrize("preset", sorted(REGRESSION_K1))
+def test_regression_captured_matches_eager(cuda_device, preset, monkeypatch):
+    """A _tuned SEIR preset at 60 nodes x 20 slices, 7 epochs in chunks of
+    3, spmm_impl "pallas": the captured loop's losses and val/test L1 bitwise
+    the eager loop's, K1 launched as reckoned in both."""
+    import dataclasses
+
+    from tmgcn_torch.configs.presets import get_preset
+
+    cfg = dataclasses.replace(get_preset(preset), seir_n_nodes=60, seir_n_slices=20,
+                              eval_every=3)
+    captured, eager, n_captured, n_eager = _synthetic_runs(cuda_device, cfg, 7, monkeypatch)
+    assert n_captured == n_eager == REGRESSION_K1[preset]
+    assert captured["train_loss"].shape == (7,) and np.all(np.isfinite(captured["train_loss"]))
+    np.testing.assert_array_equal(captured["train_loss"], eager["train_loss"])
+    for k in ("val_l1", "val_l1_ratio", "test_l1", "test_l1_ratio"):
+        np.testing.assert_array_equal(captured[k], eager[k], err_msg=k)
+
+
+@pytest.mark.parametrize("preset,generic", [("sbm_tmgcn_lp_tuned", False),
+                                            ("sbm_evolvegcn_lp_tuned", True)])
+def test_sbm_launches(cuda_device, preset, generic, monkeypatch):
+    """An SBM _tuned preset at 50 nodes x 10 slices, 7 epochs: TM-GCN's
+    "pallas" propagation 3 K1 launches at set-up; EvolveGCN, pushed onto the
+    generic path as at full width (its one-hot budget set to 0), K1 in the
+    readout plan's backward once a step. Rows bitwise captured and eager."""
+    import dataclasses
+
+    from tmgcn_torch.configs.presets import get_preset
+    from tmgcn_torch.tasks import adapters
+
+    if generic:
+        monkeypatch.setattr(adapters, "ONEHOT_BUDGET_1LAYER", 0)
+    cfg = dataclasses.replace(get_preset(preset), sbm_n_nodes=50, sbm_n_slices=10, beta1=2,
+                              beta2=2, eval_every=3)
+    captured, eager, n_captured, n_eager = _synthetic_runs(cuda_device, cfg, 7, monkeypatch)
+    assert n_captured == n_eager == (7 if generic else 3)
+    assert captured.shape == (7, 9) and np.all(np.isfinite(captured[:, 2]))
+    np.testing.assert_array_equal(captured, eager)

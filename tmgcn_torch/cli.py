@@ -14,11 +14,18 @@
                              # EvolveGCN-H; also chess_evolvegcn2_cls, chess_evolvegcn_lp
     python -m tmgcn_torch.cli run chess_tmgcn_cls --data-dir data/chess --epochs 5 \
         --profile prof/        # torch.profiler trace of the run: prof/trace.json
+    python -m tmgcn_torch.cli run seir_tmgcn_reg_tuned --epochs 300
+                             # SEIR node regression (also seir_{evolvegcn,wdgcn}_reg
+                             # and their _tuned variants); no --data-dir: generated
+    python -m tmgcn_torch.cli run sbm_tmgcn_lp_tuned --epochs 300
+                             # SBM link prediction (also sbm_evolvegcn_lp[_tuned],
+                             # sbm_tmgcn_lp and sbm_tmgcn_lp_spectral); generated
 
 ``run`` uses the card (``--device cuda``, the default) and fails if there
 is none; ``--device cpu`` runs the plain PyTorch path on the CPU. The
 results pickles hold each run's (epochs, 12) F1 rows or, for link
-prediction, its (epochs, 9) MAP-MRR rows. The JAX
+prediction, its (epochs, 9) MAP-MRR rows; for regression, its result dict
+(the per-epoch train losses, val and test L1 and L1 ratio). The JAX
 package's ``preprocess``, ``synth``, ``fetch`` and ``predict`` commands are
 not ported yet (ROADMAP queue 1, item 13).
 """
@@ -81,6 +88,13 @@ def _cmd_run(args) -> int:
         summary = {"preset": cfg.name, "elapsed_s": elapsed, "device": args.device, "runs": {}}
         for (tr, alpha), res in out["results"].items():
             tag = f"{cfg.name}_{run_tag(tr, alpha)}"
+            if isinstance(res, dict):  # regression: the JAX CLI's summary
+                with open(out_dir / f"results_{tag}.pkl", "wb") as f:
+                    pickle.dump(res, f)
+                summary["runs"][tag] = {
+                    k: (float(v) if np.isscalar(v) else None) for k, v in res.items()
+                }
+                continue
             with open(out_dir / f"results_{tag}.pkl", "wb") as f:
                 pickle.dump(np.asarray(res), f)
             write_metrics_jsonl(

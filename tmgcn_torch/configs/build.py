@@ -1,11 +1,18 @@
 """Experiment assembly: config -> data -> adapter -> training run (port of
-tmgcn_tpu.configs.build: registry datasets, edge classification and link
-prediction with TM-GCN (1 or 2 layers), KW-GCN, EvolveGCN-H or WD-GCN).
+tmgcn_tpu.configs.build: registry datasets and the synthetic SBM and SEIR
+data; edge classification and link prediction with TM-GCN (1 or 2
+layers), KW-GCN, EvolveGCN-H or WD-GCN; node regression with TM-GCN,
+EvolveGCN-H or WD-GCN).
 
 Turns an :class:`ExperimentConfig` into a run, reproducing the reference
-experiment-script semantics: tmgcn consumes the M-transformed windows Ct with shifted
-(same-block) windowing; baselines consume the untransformed C with
-disjoint windows.
+experiment-script semantics:
+
+  * tmgcn consumes the M-transformed windows Ct with shifted (same-block)
+    windowing; link prediction drops the last slice.
+  * gcn/evolvegcn/wdgcn on registry datasets consume the untransformed C
+    with disjoint windows.
+  * SBM and SEIR runs feed every method the transformed Ct windows
+    (SBM_EvovleGCN.py:181, graph_SEIR_wd_gcn.py:155).
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``;
 without a card and without that request they raise.
@@ -21,16 +28,24 @@ import numpy as np
 import torch
 
 from tmgcn_torch.configs.schema import ExperimentConfig
+from tmgcn_torch.core.mmatrix import make_m_matrix
 from tmgcn_torch.core.sparse import TemporalCOO
-from tmgcn_torch.models.evolvegcn import EvolveGCN
+from tmgcn_torch.models.evolvegcn import EvolveGCN, EvolveGCNReg
 from tmgcn_torch.models.gcn import KWGCN
-from tmgcn_torch.models.tmgcn import TMGCN, TMGCN2
-from tmgcn_torch.models.wdgcn import WDGCN
-from tmgcn_torch.ops.degree import degree_features_np
+from tmgcn_torch.models.tmgcn import TMGCN, TMGCN2, TMGCNReg
+from tmgcn_torch.models.wdgcn import WDGCN, WDGCNReg
+from tmgcn_torch.ops.degree import degree_features_np, spectral_features_np
+from tmgcn_torch.ops.mtransform import m_transform_coo
 from tmgcn_torch.preprocess import datasets as dsets
 from tmgcn_torch.preprocess.matio import load_artifact, save_artifact
-from tmgcn_torch.preprocess.pipeline import preprocess
-from tmgcn_torch.tasks.adapters import ModelAdapter, make_edge_adapter
+from tmgcn_torch.preprocess.pipeline import normalize_laplacian, preprocess
+from tmgcn_torch.preprocess.sbm import sbm_temporal_adjacency
+from tmgcn_torch.preprocess.seir import (
+    seir_features_targets,
+    seir_temporal_adjacency,
+    simulate_seir,
+)
+from tmgcn_torch.tasks.adapters import ModelAdapter, make_edge_adapter, make_regression_adapter
 from tmgcn_torch.tasks.sampling import augment_edges
 from tmgcn_torch.tasks.windows import (
     WindowSpec,
@@ -42,6 +57,7 @@ from tmgcn_torch.train.loop import (
     TrainConfig,
     run_edge_classification,
     run_link_prediction,
+    run_regression,
     train_chunks,
 )
 
@@ -73,10 +89,11 @@ class ExperimentData:
     adj: dict[str, TemporalCOO]  # per-window adjacency the model consumes
     feats: dict[str, np.ndarray]
     M: np.ndarray | None
-    edge_index: np.ndarray | None  # (3, E) labeled edges
+    edge_index: np.ndarray | None  # (3, E) labeled edges (cls) or None
     edge_values: np.ndarray | None
     lp_edges: np.ndarray | None = None  # augmented edges (LP) or None
     lp_labels: np.ndarray | None = None
+    reg_targets: dict[str, np.ndarray] | None = None  # per-window (T, N) (regression)
 
 
 def _disjoint_windows(C: TemporalCOO, spec: WindowSpec) -> dict[str, TemporalCOO]:
@@ -88,21 +105,76 @@ def _disjoint_windows(C: TemporalCOO, spec: WindowSpec) -> dict[str, TemporalCOO
     }
 
 
+def _sbm_window_spec(cfg: ExperimentConfig) -> WindowSpec:
+    """35/5/10 at the canonical T=50 (SBM_our.py:38-43), scaled for other T."""
+    T = cfg.sbm_n_slices
+    s_train = round(0.7 * T)
+    s_val = round(0.1 * T)
+    return WindowSpec(s_train, s_val, T - s_train - s_val, same_block_size=True)
+
+
+def _seir_window_spec(cfg: ExperimentConfig) -> WindowSpec:
+    """80/10/10 at the canonical T=100 (test_graph_SEIR.py:33), scaled."""
+    T = cfg.seir_n_slices
+    s_train = round(0.8 * T)
+    s_val = round(0.1 * T)
+    return WindowSpec(s_train, s_val, T - s_train - s_val, same_block_size=True)
+
+
+def _synthetic_data(cfg: ExperimentConfig) -> ExperimentData:
+    """The SBM (link prediction) or SEIR (regression) data of a config,
+    generated from ``cfg.seed`` as the JAX package generates it: every
+    method gets the M-transformed windows Ct, M = make_m_matrix(s_train, 20)."""
+    if cfg.dataset == "sbm":
+        spec = _sbm_window_spec(cfg)
+        A = sbm_temporal_adjacency(
+            cfg.sbm_n_nodes, cfg.sbm_n_slices, node_change_num=cfg.sbm_node_change,
+            seed=cfg.seed,
+        )
+        X = degree_features_np(A)
+        if cfg.sbm_features == "degree_spectral":
+            X = np.concatenate([X, spectral_features_np(A, k=2)], axis=-1)
+        lp_edges, lp_labels = augment_edges(
+            A.edge_list(), A.n_nodes, cfg.beta1, cfg.beta2, cfg.cutoff, seed=cfg.seed
+        )
+        targets = None
+        if cfg.sbm_normalize:
+            A = normalize_laplacian(A)
+    else:
+        spec = _seir_window_spec(cfg)
+        sim = simulate_seir(n_nodes=cfg.seir_n_nodes, n_slices=cfg.seir_n_slices, seed=cfg.seed)
+        X, y = seir_features_targets(sim, out_idx=cfg.seir_out_idx)
+        A = seir_temporal_adjacency(sim)
+        if cfg.seir_normalize:
+            A = normalize_laplacian(A)
+        lp_edges = lp_labels = None
+        targets = window_features(y, spec)
+    M = make_m_matrix(spec.s_train, 20)
+    feats = window_features(X, spec)
+    if cfg.standardize_features:
+        feats = _standardize(feats)
+    Ct = {w: m_transform_coo(A.slice_window(*spec.bounds(w)), M) for w in WINDOWS}
+    return ExperimentData(
+        spec=spec, adj=Ct, feats=feats, M=M, edge_index=None, edge_values=None,
+        lp_edges=lp_edges, lp_labels=lp_labels, reg_targets=targets,
+    )
+
+
 def build_data(
     cfg: ExperimentConfig,
     data_dir: str | Path | None = None,
     artifact: str | Path | None = None,
 ) -> ExperimentData:
-    """Prepare windows/features/edges for a registry dataset (host-side).
+    """Prepare windows/features/edges for a config (host-side).
 
-    Loads a .mat artifact if given or cached in ``data_dir``, else
-    preprocesses the raw file and caches the artifact there, in the same
-    schema as the JAX package (either package reads the other's cache).
+    SBM and SEIR data are generated from the config (no file is read).
+    A registry dataset loads a .mat artifact if given or cached in
+    ``data_dir``, else preprocesses the raw file and caches the artifact
+    there, in the same schema as the JAX package (either package reads the
+    other's cache).
     """
     if cfg.dataset in ("sbm", "seir"):
-        raise NotImplementedError(
-            f"synthetic dataset {cfg.dataset!r} is not ported yet (ROADMAP queue 1, item 11)"
-        )
+        return _synthetic_data(cfg)
     spec_entry = dsets.REGISTRY[cfg.dataset]
     p = spec_entry.preprocess
     spec = WindowSpec(p.s_train, p.s_val, p.s_test, same_block_size=cfg.same_block_size)
@@ -176,20 +248,26 @@ def build_data(
     )
 
 
-def _check_ported(cfg: ExperimentConfig) -> None:
-    if cfg.task not in ("edge_cls", "link_pred"):
-        raise NotImplementedError(
-            f"only edge classification and link prediction are ported yet, not {cfg.method} "
-            f"{cfg.task} (ROADMAP queue 1, item 11)"
-        )
-
-
-def build_model(
-    cfg: ExperimentConfig, n_slices: int, in_feat: int
-) -> TMGCN | TMGCN2 | KWGCN | EvolveGCN | WDGCN:
-    _check_ported(cfg)
+def build_model(cfg: ExperimentConfig, n_slices: int, in_feat: int):
+    """The model a config names: TMGCN, TMGCN2, KWGCN, EvolveGCN or WDGCN,
+    or for regression TMGCNReg, EvolveGCNReg or WDGCNReg."""
     hf = tuple(cfg.hidden_feat)
     dtype = getattr(torch, cfg.dtype)
+    if cfg.task == "regression":
+        if cfg.method == "tmgcn":
+            return TMGCNReg(
+                n_slices=n_slices, in_feat=in_feat, hidden_feat=hf,
+                condensed_W=cfg.condensed_W, use_Minv=cfg.use_Minv, dtype=dtype,
+                spmm_impl=cfg.spmm_impl,
+            )
+        if cfg.method == "evolvegcn":
+            return EvolveGCNReg(n_slices=n_slices, in_feat=in_feat, hidden_feat=hf, dtype=dtype)
+        if cfg.method == "wdgcn":
+            return WDGCNReg(
+                n_slices=n_slices, in_feat=in_feat, hidden_feat=hf, dtype=dtype,
+                spmm_impl=cfg.spmm_impl,
+            )
+        raise ValueError(f"no regression variant for method {cfg.method!r}")
     if cfg.method == "wdgcn":
         return WDGCN(
             n_slices=n_slices, in_feat=in_feat, hidden_feat=hf, dtype=dtype,
@@ -238,7 +316,9 @@ def params_from_jax(tree: dict) -> dict:
     and layouts (TMGCN's W (F0, F1) and U (2·F1, C); TMGCN2's and KWGCN's
     W1, W2 and U; EvolveGCN's ``cell1``/``cell2`` GRU cells and U, and its
     frozen W_init1/W_init2; WDGCN's W, per-gate LSTM weights and frozen U,
-    h_init, c_init), so each array is copied as
+    h_init, c_init; the regression models' head ``lin_w`` (F1, 1) and
+    ``lin_b`` (1,) beside TMGCNReg's W, EvolveGCNReg's ``cell1`` and
+    W_init1, WDGCNReg's W and LSTM), so each array is copied as
     it is, dtype kept, onto the CPU; the training loop moves them to its
     device.
     """
@@ -255,9 +335,10 @@ def run_tag(trial: int, alpha: float | None) -> str:
 
 @dataclasses.dataclass(frozen=True)
 class Experiment:
-    """One config built on its device: the data, the windows' splits and the
-    adapter (bundles packed and moved, cached propagation done), with the
-    host seconds of the data and the adapter builds."""
+    """One config built on its device: the data, the windows' splits (for
+    regression the windows' (T, N) targets) and the adapter (bundles packed
+    and moved, cached propagation done), with the host seconds of the data
+    and the adapter builds."""
 
     cfg: ExperimentConfig
     data: ExperimentData
@@ -279,7 +360,6 @@ def build_experiment(
     """The data, splits and adapter of one config, on ``device`` (cuda
     unless told otherwise)."""
     device = resolve_device(device)
-    _check_ported(cfg)  # before the data build
     t0 = time.perf_counter()
     data = build_data(cfg, data_dir=data_dir, artifact=artifact)
     t_data = time.perf_counter() - t0
@@ -287,21 +367,30 @@ def build_experiment(
     t0 = time.perf_counter()
     in_feat = data.feats["train"].shape[-1]
     link_pred = cfg.task == "link_pred"
-    if link_pred:
-        # The model consumes slices [0, S-1) and predicts the edges of [1, S).
-        splits = split_data_link_prediction(data.lp_edges, data.lp_labels, data.spec)
-        model_edges = {w: splits[w].model_edges for w in WINDOWS}
-        model = build_model(cfg, data.spec.s_train - 1, in_feat)
-    else:
-        splits = split_edges_classification(
-            data.edge_index, data.edge_values, data.spec, n_classes=cfg.n_classes
+    if cfg.task == "regression":
+        # The adapter reads M only for TM-GCN, as the JAX package's does.
+        splits = data.reg_targets
+        adapter = make_regression_adapter(
+            build_model(cfg, data.spec.s_train, in_feat), data.adj, data.feats, M=data.M,
+            device=device,
         )
-        model_edges = {w: splits[w].edges for w in WINDOWS}
-        model = build_model(cfg, data.spec.s_train, in_feat)
-    adapter = make_edge_adapter(
-        model, data.adj, data.feats, model_edges,
-        M=data.M if cfg.method == "tmgcn" else None, drop_last_slice=link_pred, device=device,
-    )
+    else:
+        if link_pred:
+            # The model consumes slices [0, S-1) and predicts the edges of [1, S).
+            splits = split_data_link_prediction(data.lp_edges, data.lp_labels, data.spec)
+            model_edges = {w: splits[w].model_edges for w in WINDOWS}
+            model = build_model(cfg, data.spec.s_train - 1, in_feat)
+        else:
+            splits = split_edges_classification(
+                data.edge_index, data.edge_values, data.spec, n_classes=cfg.n_classes
+            )
+            model_edges = {w: splits[w].edges for w in WINDOWS}
+            model = build_model(cfg, data.spec.s_train, in_feat)
+        adapter = make_edge_adapter(
+            model, data.adj, data.feats, model_edges,
+            M=data.M if cfg.method == "tmgcn" else None, drop_last_slice=link_pred,
+            device=device,
+        )
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     t_adapter = time.perf_counter() - t0
@@ -330,9 +419,13 @@ def train_config(cfg: ExperimentConfig, n_epochs: int | None = None,
     )
 
 
-def run_trial(exp: Experiment, tcfg: TrainConfig, alpha: float,
-              generator: torch.Generator) -> np.ndarray:
-    """One training run of the experiment's task at one alpha; its rows."""
+def run_trial(exp: Experiment, tcfg: TrainConfig, alpha: float | None,
+              generator: torch.Generator) -> np.ndarray | dict:
+    """One training run of the experiment's task at one alpha: its rows, or
+    for regression (alpha None) ``run_regression``'s result dict."""
+    if exp.cfg.task == "regression":
+        res, _ = run_regression(exp.adapter, exp.splits, tcfg, generator=generator)
+        return res
     cw = class_weights(exp.cfg, alpha)
     if exp.link_pred:
         res, _ = run_link_prediction(
@@ -344,15 +437,15 @@ def run_trial(exp: Experiment, tcfg: TrainConfig, alpha: float,
     return res
 
 
-def trial_chunks(exp: Experiment, tcfg: TrainConfig, alpha: float,
+def trial_chunks(exp: Experiment, tcfg: TrainConfig, alpha: float | None,
                  generator: torch.Generator, capacity: int | None = None):
     """The chunk runner of the step that ``run_trial`` trains, from the
     same parameters (``train.loop.train_chunks``'s ``chunks``), for timing
     plain epochs alone."""
     lp = {"loss_type": exp.cfg.loss_type} if exp.link_pred else {}
-    chunks, _, _ = train_chunks(exp.adapter, exp.splits["train"], class_weights(exp.cfg, alpha),
-                                tcfg, task=exp.cfg.task, generator=generator, capacity=capacity,
-                                **lp)
+    cw = None if exp.cfg.task == "regression" else class_weights(exp.cfg, alpha)
+    chunks, _, _ = train_chunks(exp.adapter, exp.splits["train"], cw, tcfg, task=exp.cfg.task,
+                                generator=generator, capacity=capacity, **lp)
     return chunks
 
 
@@ -374,7 +467,9 @@ def run_experiment(
     data build, the adapter build (packing, device upload, cached
     propagation) and the training runs. The arrays are (epochs, 12) for
     edge classification and link prediction with eval_type "F1", (epochs,
-    9) for link prediction with "MAP-MRR".
+    9) for link prediction with "MAP-MRR". Regression runs once per trial,
+    keyed (trial, None), as the JAX package runs it; its result is
+    ``run_regression``'s dict.
     """
     device = resolve_device(device)
     if checkpoint_dir is not None:
@@ -389,7 +484,7 @@ def run_experiment(
     generator = torch.Generator().manual_seed(cfg.seed)
     results: dict = {}
     for tr in range(cfg.n_trials):
-        for alpha in alphas:
+        for alpha in (None,) if cfg.task == "regression" else alphas:
             results[(tr, alpha)] = run_trial(exp, tcfg, alpha, generator)
     t_train = time.perf_counter() - t0
     return {

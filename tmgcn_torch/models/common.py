@@ -11,6 +11,8 @@ initial states).
 
 from __future__ import annotations
 
+import math
+
 import torch
 
 
@@ -27,6 +29,25 @@ def randn(
     """
     out = torch.randn(shape, generator=generator, dtype=dtype, device=generator.device)
     return out.to(device) if device is not None else out
+
+
+def linear_head(
+    generator: torch.Generator,
+    f: int,
+    dtype: torch.dtype = torch.float32,
+    device: str | torch.device | None = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The regression head's (f, 1) weight and (1,) bias, each drawn
+    U(-1/√f, 1/√f) from ``generator`` as ``nn.Linear(f, 1)`` initializes
+    them, weight first."""
+    bound = 1.0 / math.sqrt(f)
+
+    def uniform(shape):
+        u = torch.rand(shape, generator=generator, dtype=dtype, device=generator.device)
+        out = u * (2 * bound) - bound
+        return out.to(device) if device is not None else out
+
+    return uniform((f, 1)), uniform((1,))
 
 
 def nonlinearity(name: str):

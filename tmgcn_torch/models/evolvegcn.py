@@ -1,5 +1,5 @@
 """EvolveGCN-H: a GRU evolves the GCN weights across time (port of
-tmgcn_tpu.models.evolvegcn, the edge-output model).
+tmgcn_tpu.models.evolvegcn).
 
 At each time step a GRU cell updates the layer weight matrix from a top-k
 summary of the current node embeddings, then the slice is propagated with
@@ -14,8 +14,6 @@ The initial weights W_init are deliberately non-learned random buffers
 threaded from training into the val/test forwards
 (experiment_bitcoin_evolvegcn.py:132-148); ``apply`` therefore takes
 optional explicit initial weights and always returns the evolved finals.
-The regression variant ``EvolveGCNReg`` is not ported yet (ROADMAP queue
-1, item 11).
 
 Top-k: ``jax.lax.top_k`` orders equal scores by the lower index; the port
 takes the first k of a stable descending sort, which orders them the same
@@ -30,7 +28,7 @@ import dataclasses
 import torch
 
 from tmgcn_torch.core.sparse import TemporalCOO
-from tmgcn_torch.models.common import randn
+from tmgcn_torch.models.common import linear_head, randn
 from tmgcn_torch.ops.edge_readout import edge_readout
 from tmgcn_torch.ops.spmm import spmm, spmm_slice
 
@@ -264,3 +262,67 @@ class EvolveGCN:
         if readout_op is not None:
             return readout_op(Y, U), finals
         return edge_readout(Y, edges, U), finals
+
+
+@dataclasses.dataclass(frozen=True)
+class EvolveGCNReg:
+    """1-layer EvolveGCN-H with a per-node linear regression head -> (T, N).
+
+    As in the JAX package, which departs from the reference on purpose:
+    the reference's SEIR script passes val/test data to a forward that
+    ignores it without an explicit W_init (evolvegcn_functions.py:341-347
+    falls back to the cached training tensors), so its val/test numbers
+    re-score the training window; this model evaluates the data given,
+    each window's weights evolving from W_init1 unless ``W_init`` is given.
+    """
+
+    n_slices: int
+    in_feat: int
+    hidden_feat: tuple[int, int]
+    dtype: torch.dtype = torch.float32
+    embed_dtype: torch.dtype | None = None
+
+    @property
+    def store_dtype(self) -> torch.dtype:
+        return self.embed_dtype if self.embed_dtype is not None else self.dtype
+
+    def init(self, generator: torch.Generator, device: str | torch.device | None = None) -> dict:
+        """Standard-normal cell1 and W_init1, then the head (``linear_head``),
+        drawn from ``generator`` in the JAX package's name order. W_init1
+        is a frozen buffer."""
+        f0, (f1, _) = self.in_feat, self.hidden_feat
+        cell1 = _init_cell(generator, f0, f1, self.dtype, device)
+        W_init1 = randn(generator, (f0, f1), self.dtype, device)
+        lin_w, lin_b = linear_head(generator, f1, self.dtype, device)
+        return {"params": {"cell1": cell1, "lin_w": lin_w, "lin_b": lin_b},
+                "buffers": {"W_init1": W_init1}}
+
+    def propagate(self, A: TemporalCOO, X: torch.Tensor) -> torch.Tensor:
+        """AX per slice — constant across training epochs, cacheable; the
+        plain ``spmm``, as in the JAX package."""
+        return spmm(A, X)
+
+    def apply(
+        self,
+        variables: dict,
+        A: TemporalCOO,
+        X: torch.Tensor,
+        W_init: torch.Tensor | None = None,
+        AX: torch.Tensor | None = None,
+    ) -> torch.Tensor:
+        """(T, N) node outputs: from the cached AX by the GRU-only weight
+        loop and one batched matmul, else one SpMM per slice in the loop."""
+        p = variables["params"]
+        W0 = variables["buffers"]["W_init1"] if W_init is None else W_init
+        if AX is not None:
+            _, Ws = evolve_weight_stack(p["cell1"], X, W0)
+            Y = apply_slice_weights(AX, Ws).to(self.store_dtype)
+        else:
+            W, Y = W0, []
+            for r, c, v, x in zip(*_slice_stream(A, X.device), X.unbind(0)):
+                W = _evolve_step(p["cell1"], W, x)
+                h = torch.matmul(*_promote(spmm_slice(r, c, v, x, A.n_nodes), W))
+                Y.append(h.to(self.store_dtype))
+            Y = torch.stack(Y)
+        out = torch.matmul(Y, p["lin_w"].to(Y.dtype)) + p["lin_b"].to(Y.dtype)
+        return out[..., 0]

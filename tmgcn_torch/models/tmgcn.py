@@ -12,8 +12,7 @@ Capability reference (IBM/TM-GCN, TensorGCN-master/
 embedding_help_functions.py): EmbeddingGCN :156-234 (1 layer),
 EmbeddingGCN2 :236-357 (2 layers, nonlin2/apply_M_twice/
 apply_M_three_times options, float64 interlayer cast :335 and float32 head
-cast :355). The regression variant is not ported yet (ROADMAP queue 1,
-item 11).
+cast :355), EmbeddingGCN_reg :359-423 (regression head).
 """
 
 from __future__ import annotations
@@ -23,7 +22,7 @@ import dataclasses
 import torch
 
 from tmgcn_torch.core.sparse import TemporalCOO
-from tmgcn_torch.models.common import nonlinearity, randn
+from tmgcn_torch.models.common import linear_head, nonlinearity, randn
 from tmgcn_torch.ops.edge_readout import edge_readout, edge_readout_bilinear
 from tmgcn_torch.ops.mtransform import m_transform, m_transform_inverse
 from tmgcn_torch.ops.spmm import spmm
@@ -226,3 +225,57 @@ class TMGCN2:
         if readout_op is not None:
             return readout_op(Z, U)
         return edge_readout(Z, edges, U)
+
+
+@dataclasses.dataclass(frozen=True)
+class TMGCNReg:
+    """1-layer TM-GCN with a per-node linear regression head -> (T, N).
+
+    As in the JAX package, which departs from the reference on purpose:
+    the reference's regression forward always uses the cached training
+    propagation (embedding_help_functions.py:410-412), so its SEIR val/test
+    numbers re-score the training window; this model evaluates the data
+    given.
+    """
+
+    n_slices: int
+    in_feat: int
+    hidden_feat: tuple[int, int]
+    condensed_W: bool = True
+    use_Minv: bool = False
+    dtype: torch.dtype = torch.float32
+    spmm_impl: str = "jnp"
+
+    def init(
+        self, generator: torch.Generator, device: str | torch.device | None = None
+    ) -> dict:
+        """Standard-normal W, then the head (``linear_head``), drawn from
+        ``generator``."""
+        f0, (f1, _) = self.in_feat, self.hidden_feat
+        w_shape = (f0, f1) if self.condensed_W else (self.n_slices, f0, f1)
+        W = randn(generator, w_shape, self.dtype, device)
+        lin_w, lin_b = linear_head(generator, f1, self.dtype, device)
+        return {"params": {"W": W, "lin_w": lin_w, "lin_b": lin_b}, "buffers": {}}
+
+    def propagate(self, Ct: TemporalCOO, X: torch.Tensor, M: torch.Tensor) -> torch.Tensor:
+        """AtXt = Ct ⊛ (M ×₁ X) — parameter-independent, cacheable."""
+        return spmm(Ct, m_transform(M, X), impl=self.spmm_impl)
+
+    def apply(
+        self,
+        variables: dict,
+        Ct: TemporalCOO,
+        X: torch.Tensor,
+        M: torch.Tensor,
+        AtXt: torch.Tensor | None = None,
+    ) -> torch.Tensor:
+        """(T, N) node outputs."""
+        p = variables["params"]
+        if AtXt is None:
+            AtXt = self.propagate(Ct, X, M)
+        AtXt = AtXt.to(self.dtype)  # reference f32 buffer truncation
+        Y = torch.matmul(AtXt, p["W"].to(AtXt.dtype))
+        if self.use_Minv:
+            Y = m_transform_inverse(M, Y)
+        out = torch.matmul(Y, p["lin_w"].to(Y.dtype)) + p["lin_b"].to(Y.dtype)
+        return out[..., 0]

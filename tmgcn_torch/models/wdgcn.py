@@ -1,17 +1,16 @@
 """WD-GCN: one GCN layer followed by a per-node LSTM over time (port of
-tmgcn_tpu.models.wdgcn, the edge-classification model).
+tmgcn_tpu.models.wdgcn).
 
 One per-slice graph convolution produces (T, N, F1) embeddings; a single
 LSTM cell with weights shared across nodes then scans the time axis, all
 nodes batched in one matmul per step.
 
 Capability reference: IBM/TM-GCN TensorGCN-master/wd_gcn_functions.py —
-WD_GCN :21-98. Two reference quirks reproduced for parity: the candidate
+WD_GCN :21-98, WD_GCN_reg :100-169. Two reference quirks reproduced for parity: the candidate
 cell state uses a *sigmoid* (not tanh, wd_gcn_functions.py:94), and the
 edge-readout matrix U is a frozen random tensor, never trained (:55) — it
 lives in ``buffers`` here. The LSTM initial states h/c are likewise frozen
-random buffers. The regression variant ``WDGCNReg`` is not ported yet
-(ROADMAP queue 1, item 11).
+random buffers.
 
 The scan state runs transposed, (F, N), as in the JAX package, so the
 port computes the same per-gate dot products in the same order. The gate
@@ -27,7 +26,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from tmgcn_torch.core.sparse import TemporalCOO
-from tmgcn_torch.models.common import randn
+from tmgcn_torch.models.common import linear_head, randn
 from tmgcn_torch.ops.edge_readout import edge_readout
 from tmgcn_torch.ops.spmm import spmm
 
@@ -231,3 +230,51 @@ class WDGCN:
         if readout_op is not None:
             return readout_op(Z, U)
         return edge_readout(Z, edges, U)
+
+
+@dataclasses.dataclass(frozen=True)
+class WDGCNReg:
+    """WD-GCN with a per-node linear regression head -> (T, N).
+
+    As in the JAX package, which departs from the reference on purpose:
+    the reference's regression forward ignores its (A, X) arguments unless
+    edges are also passed (wd_gcn_functions.py:138-142), so its SEIR
+    val/test numbers re-score the training window; this model evaluates
+    the data given. Its propagation AX is recomputed at every call, as the
+    JAX package's is (with ``spmm_impl="pallas"`` one K1 launch a step).
+    """
+
+    n_slices: int
+    in_feat: int
+    hidden_feat: tuple[int, int]
+    dtype: torch.dtype = torch.float32
+    spmm_impl: str = "jnp"
+
+    def init(self, generator: torch.Generator, device: str | torch.device | None = None) -> dict:
+        """Standard-normal W and LSTM, then the head (``linear_head``),
+        drawn from ``generator``; h_init and c_init are frozen buffers."""
+        f0, (f1, _) = self.in_feat, self.hidden_feat
+        W = randn(generator, (f0, f1), self.dtype, device)
+        lstm_params, lstm_buffers = _init_lstm(generator, f1, self.dtype, device)
+        lin_w, lin_b = linear_head(generator, f1, self.dtype, device)
+        return {
+            "params": {"W": W, "lstm": lstm_params, "lin_w": lin_w, "lin_b": lin_b},
+            "buffers": lstm_buffers,
+        }
+
+    def apply(
+        self,
+        variables: dict,
+        A: TemporalCOO,
+        X: torch.Tensor,
+        AX: torch.Tensor | None = None,
+    ) -> torch.Tensor:
+        """(T, N) node outputs."""
+        p, b = variables["params"], variables["buffers"]
+        if AX is None:
+            AX = spmm(A, X, impl=self.spmm_impl)
+        AX = AX.to(self.dtype)
+        Y = torch.relu(torch.matmul(AX, p["W"].to(AX.dtype)))
+        Z = lstm_scan(p["lstm"], b["h_init"], b["c_init"], Y)
+        out = torch.matmul(Z, p["lin_w"].to(Z.dtype)) + p["lin_b"].to(Z.dtype)
+        return out[..., 0]

@@ -1,6 +1,7 @@
 """Model-family adapters: one calling convention across architectures
 (port of tmgcn_tpu.tasks.adapters: the edge branches of TM-GCN (1 and 2
-layers), KW-GCN, EvolveGCN-H and WD-GCN).
+layers), KW-GCN, EvolveGCN-H and WD-GCN, and the regression branches of
+TM-GCN, EvolveGCN-H and WD-GCN).
 
 Adapters prepare per-window data bundles on the device, once, and expose:
 
@@ -38,6 +39,11 @@ one-hot matmuls), at 2 layers the readout-restricted layer 2 with per-row
 slice weights, and past either budget (or with ``embed_dtype`` set) the
 model's own staged forward with the readout plan. Its carry is the
 evolved final weights, threaded train -> val -> test by the loops.
+
+The regression adapter (``make_regression_adapter``, the SEIR task)
+caches TM-GCN's propagation and EvolveGCN's AX per window, as the JAX
+package's does, and nothing for WD-GCN, whose AX is recomputed each step;
+its carry is always ``()``.
 """
 
 from __future__ import annotations
@@ -51,10 +57,15 @@ import torch
 from tmgcn_torch.core.sparse import TemporalCOO, as_numpy
 from tmgcn_torch.kernels import spmm_cuda
 from tmgcn_torch.models.common import nonlinearity
-from tmgcn_torch.models.evolvegcn import EvolveGCN, apply_slice_weights, evolve_weight_stack
+from tmgcn_torch.models.evolvegcn import (
+    EvolveGCN,
+    EvolveGCNReg,
+    apply_slice_weights,
+    evolve_weight_stack,
+)
 from tmgcn_torch.models.gcn import KWGCN
-from tmgcn_torch.models.tmgcn import TMGCN, TMGCN2
-from tmgcn_torch.models.wdgcn import WDGCN
+from tmgcn_torch.models.tmgcn import TMGCN, TMGCN2, TMGCNReg
+from tmgcn_torch.models.wdgcn import WDGCN, WDGCNReg
 from tmgcn_torch.ops import spmm_blockdense, spmm_rowsplit
 from tmgcn_torch.ops.edge_readout import make_readout_plan, readout_operator
 from tmgcn_torch.ops.spmm import pack_operator
@@ -636,5 +647,68 @@ def make_edge_adapter(
             variables["params"]["W"], variables["params"]["U"], bundle,
             model.dtype, model.readout,
         ), carry
+
+    return ModelAdapter(init, apply, bundles, device)
+
+
+def make_regression_adapter(
+    model,
+    adj: dict[str, TemporalCOO],
+    feats: dict[str, Any],
+    M: np.ndarray | None = None,
+    *,
+    device: str | torch.device,
+) -> ModelAdapter:
+    """Adapter for (T, N) regression models (the SEIR task).
+
+    As the JAX package's: the bundles are prepacked with the model's impl
+    only for TMGCNReg and WDGCNReg (``"pallas"``: K1), and carry M only for
+    TMGCNReg. TMGCNReg's propagation and EvolveGCNReg's AX are computed
+    once per distinct window here; WDGCNReg caches nothing, so its
+    propagation runs in every step. ``apply`` returns the (T, N) outputs and
+    the carry unchanged: every window starts from the model's own initial
+    state. ``device``: as ``make_edge_adapter`` takes it.
+    """
+    if not isinstance(model, (TMGCNReg, EvolveGCNReg, WDGCNReg)):
+        raise TypeError(f"unsupported regression model: {type(model).__name__}")
+    impl = getattr(model, "spmm_impl", "jnp")
+    spmm_operator = (
+        impl if impl in OPERATOR_IMPLS and isinstance(model, (TMGCNReg, WDGCNReg)) else None
+    )
+    device = torch.device(device)
+    bundles = _prepare_bundles(
+        adj, feats, None, M if isinstance(model, TMGCNReg) else None, False, spmm_operator,
+        device, readout=False,
+    )
+
+    def init(generator):
+        return model.init(generator, device)
+
+    if isinstance(model, TMGCNReg):
+        with torch.no_grad():
+            for b in _unique_bundles(bundles):
+                b["cached"] = model.propagate(b["adj"], b["X"], b["M"])
+
+        def apply(variables, bundle, carry):
+            return (
+                model.apply(variables, bundle["adj"], bundle["X"], bundle["M"], bundle["cached"]),
+                carry,
+            )
+
+    elif isinstance(model, EvolveGCNReg):
+        # The parameter-independent A@X, so the weight loop runs no SpMM.
+        with torch.no_grad():
+            for b in _unique_bundles(bundles):
+                b["cached_ax"] = model.propagate(b["adj"], b["X"])
+
+        def apply(variables, bundle, carry):
+            W0 = carry[0] if carry else None
+            return model.apply(variables, bundle["adj"], bundle["X"], W0,
+                               AX=bundle["cached_ax"]), carry
+
+    else:
+
+        def apply(variables, bundle, carry):
+            return model.apply(variables, bundle["adj"], bundle["X"]), carry
 
     return ModelAdapter(init, apply, bundles, device)

@@ -1,10 +1,12 @@
 """Evaluation metrics with numerics identical to the reference protocol
-(port of tmgcn_tpu.tasks.metrics: classification and link prediction).
+(port of tmgcn_tpu.tasks.metrics: classification, link prediction and
+node regression).
 
 Class 0 is the positive/minority class throughout (existing edges for
 link prediction) — capability reference: IBM/TM-GCN TensorGCN-master/
 embedding_help_functions.py — compute_f1 :530-538, get_row_MRR :669-681,
-get_MRR :684-701, get_MAP :704-711, compute_MAP_MRR :714-729. These run
+get_MRR :684-701, get_MAP :704-711, compute_MAP_MRR :714-729; the SEIR
+scripts' L1 / L1-ratio protocol, test_graph_SEIR.py:172-200. These run
 host-side in numpy/float64 on fetched logits.
 """
 
@@ -225,6 +227,24 @@ def map_mrr(
         # embedding_help_functions.py:725) — the rankings differ.
         MRR += mrr_from_edges(logits[m, 0], target[m], edges[1:3, m]) * w
     return MAP, MRR
+
+
+def l1_and_ratio(pred: np.ndarray, truth: np.ndarray) -> tuple[float, float]:
+    """SEIR regression evaluation: the per-slice summed L1 and L1/||y||_1,
+    each averaged over slices, in float64 on the host."""
+    pred = np.asarray(pred, dtype=np.float64)
+    truth = np.asarray(truth, dtype=np.float64)
+    T = pred.shape[0]
+    loss = 0.0
+    ratio = 0.0
+    with np.errstate(divide="ignore", invalid="ignore"):
+        for ts in range(T):
+            l1 = np.float64(np.abs(pred[ts] - truth[ts]).sum())
+            loss += l1
+            # A slice with ||y||_1 = 0 yields inf, as the reference's
+            # division does (test_graph_SEIR.py:179).
+            ratio += l1 / np.float64(np.abs(truth[ts]).sum())
+    return float(loss / T), float(ratio / T)
 
 
 def weighted_ce_loss_np(logits: np.ndarray, target: np.ndarray, weights: np.ndarray) -> float:

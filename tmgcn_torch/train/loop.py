@@ -1,12 +1,15 @@
 """Task training loops: full-batch SGD with periodic evaluation (port of
-tmgcn_tpu.train.loop: edge classification and link prediction).
+tmgcn_tpu.train.loop: edge classification, link prediction and node
+regression).
 
 Reproduces the reference experiment-script protocol (capability reference:
 TensorGCN-master/experiment_bitcoin_our.py:100-173 for edge
 classification, experiment_bitcoin_our_link_prediction.py:82-139 for link
-prediction): full-batch SGD (lr 0.01, momentum 0.9), evaluation of
-val/test every ``eval_every`` epochs, and per-epoch metric rows in the
-reference's layouts ((epochs, 12) for F1, (epochs, 9) for MAP-MRR).
+prediction, test_graph_SEIR.py:149-200 for regression): full-batch SGD (lr
+0.01, momentum 0.9), evaluation of val/test every ``eval_every`` epochs,
+and per-epoch metric rows in the reference's layouts ((epochs, 12) for F1,
+(epochs, 9) for MAP-MRR); regression trains in chunks of ``eval_every``
+epochs and scores val and test once, at the end.
 
 Cadence as in the JAX package: one evaluation epoch (a step whose fresh
 training logits are scored, then val/test), then ``eval_every - 1`` plain
@@ -26,6 +29,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 
 import numpy as np
 import torch
@@ -34,7 +38,11 @@ from tmgcn_torch.kernels import spmm_cuda
 from tmgcn_torch.tasks import metrics as M
 from tmgcn_torch.tasks.adapters import ModelAdapter
 from tmgcn_torch.tasks.windows import EdgeSplit, LinkPredSplit
-from tmgcn_torch.train.losses import sigmoid_pair_logits, weighted_cross_entropy
+from tmgcn_torch.train.losses import (
+    sigmoid_pair_logits,
+    summed_per_slice_mse,
+    weighted_cross_entropy,
+)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -170,27 +178,29 @@ class _Step:
     hold it: the JAX package's ``sgd_step`` and the confusion counts of its
     ``chunk_step`` body.
 
-    A call runs the forward, the weighted loss, the backward
-    (``torch.autograd.grad``: the gradients are the step's own tensors, with
-    no ``.grad`` to zero or free) and the optimizer's update in place; writes
-    the step's stats — [loss] (and tp, fp, fn with ``with_confusion``) of the
-    pre-update logits, float64 — into row ``slot`` of ``stats``, a ring of
-    ``capacity`` rows on the device, and advances ``slot``; and returns (out,
-    carry): those logits after ``logit_transform`` and the adapter's carry
-    (EvolveGCN's evolved final weights, which the evaluation windows start
-    from), both detached. Nothing in it reads the device from the host or
-    keeps state in Python, so each replay of its capture is the next epoch.
+    A call runs the forward, ``loss(out, target)`` (the weighted
+    cross-entropy of a task's class weights, or the regression's summed
+    per-slice MSE), the backward (``torch.autograd.grad``: the gradients are
+    the step's own tensors, with no ``.grad`` to zero or free) and the
+    optimizer's update in place; writes the step's stats — [loss] (and tp,
+    fp, fn with ``with_confusion``) of the pre-update outputs, float64 — into
+    row ``slot`` of ``stats``, a ring of ``capacity`` rows on the device, and
+    advances ``slot``; and returns (out, carry): those outputs after
+    ``logit_transform`` and the adapter's carry (EvolveGCN's evolved final
+    weights, which the evaluation windows start from), both detached.
+    Nothing in it reads the device from the host or keeps state in Python,
+    so each replay of its capture is the next epoch.
     """
 
     def __init__(self, adapter: ModelAdapter, variables: dict, opt: _Optimizer,
-                 class_weights, target, with_confusion: bool, capacity: int,
+                 loss, target, with_confusion: bool, capacity: int,
                  logit_transform=None):
         self.device = adapter.device
         self.adapter = adapter
         self.variables = variables
         self.opt = opt
         self.bundle = adapter.bundles["train"]
-        self.cw = torch.as_tensor(class_weights, dtype=torch.float64, device=self.device)
+        self.loss = loss
         self.tgt = torch.as_tensor(target, device=self.device)
         self.with_confusion = with_confusion
         self.logit_transform = logit_transform
@@ -203,7 +213,7 @@ class _Step:
         out, carry = self.adapter.apply(self.variables, self.bundle, ())
         if self.logit_transform is not None:
             out = self.logit_transform(out)
-        loss = weighted_cross_entropy(out, self.tgt, self.cw)
+        loss = self.loss(out, self.tgt)
         self.opt.step(list(torch.autograd.grad(loss, self.opt.params)))
         out = out.detach()
         stats = [loss.detach().double()]
@@ -324,8 +334,8 @@ def _lp_target(train: LinkPredSplit) -> np.ndarray:
 
 def train_chunks(
     adapter: ModelAdapter,
-    train: EdgeSplit | LinkPredSplit,
-    class_weights: np.ndarray,
+    train: EdgeSplit | LinkPredSplit | np.ndarray,
+    class_weights: np.ndarray | None,
     cfg: TrainConfig,
     task: str = "edge_cls",
     loss_type: str = "softmax",
@@ -335,33 +345,45 @@ def train_chunks(
     capacity: int | None = None,
 ) -> tuple[_EagerChunks, object, dict]:
     """The step that a task trains on the adapter's train bundle, as the
-    JAX package's ``_make_steps`` builds it: (chunks, eval_forward,
-    variables).
+    JAX package's ``_make_steps`` (and ``run_regression``'s chunk body)
+    builds it: (chunks, eval_forward, variables).
 
-    ``task`` "edge_cls": the step scores ``train.target``; its stats rows
-    are [loss, tp, fp, fn]. "link_pred": it scores the window's model edges
-    (``_lp_target``), loss_type "sigmoid" maps 1-column logits to [p, 1-p]
-    pairs; its stats rows are [loss]. ``chunks`` runs the step (see
-    ``_chunks``), keeping the stats of its last ``capacity`` steps
-    (default ``cfg.n_epochs``). ``eval_forward(window, carry)`` is the
-    window's forward without grad, eager. The arguments ``generator``,
+    ``task`` "edge_cls": the step scores ``train.target`` by the weighted
+    cross-entropy of ``class_weights``; its stats rows are [loss, tp, fp,
+    fn]. "link_pred": it scores the window's model edges (``_lp_target``),
+    loss_type "sigmoid" maps 1-column logits to [p, 1-p] pairs; its stats
+    rows are [loss]. "regression": ``train`` is the train window's (T, N)
+    targets, scored in float32 by the summed per-slice MSE
+    (``class_weights`` unused); its stats rows are [loss]. ``chunks`` runs
+    the step (see ``_chunks``), keeping the stats of its last ``capacity``
+    steps (default ``cfg.n_epochs``). ``eval_forward(window, carry)`` is
+    the window's forward without grad, eager. The arguments ``generator``,
     ``variables`` and ``checkpointer``: as ``_prepare`` takes them; the
     ``variables`` returned are the params the step trains and the buffers.
     """
+    transform = None
     if task == "edge_cls":
         if loss_type != "softmax":
             raise ValueError(f"edge classification trains the softmax loss, not {loss_type!r}")
-        target, transform = train.target, None
+        target = train.target
     elif task == "link_pred":
         if loss_type not in ("softmax", "sigmoid"):
             raise ValueError(f"unknown loss_type {loss_type!r}")
         target = _lp_target(train)
         transform = sigmoid_pair_logits if loss_type == "sigmoid" else None
+    elif task == "regression":
+        # float32: the JAX package's default float (x64 off).
+        target = np.asarray(train, dtype=np.float32)
     else:
         raise ValueError(f"no training step for task {task!r}")
     params, buffers, opt = _prepare(adapter, cfg, generator, variables, checkpointer)
     variables = {"params": params, "buffers": buffers}
-    step = _Step(adapter, variables, opt, class_weights, target,
+    if task == "regression":
+        loss = summed_per_slice_mse
+    else:
+        cw = torch.as_tensor(class_weights, dtype=torch.float64, device=adapter.device)
+        loss = functools.partial(weighted_cross_entropy, class_weights=cw)
+    step = _Step(adapter, variables, opt, loss, target,
                  with_confusion=task == "edge_cls",
                  capacity=capacity if capacity is not None else max(cfg.n_epochs, 1),
                  logit_transform=transform)
@@ -528,3 +550,46 @@ def run_link_prediction(
 
     return results, {"params": _tree_map(torch.Tensor.detach, variables["params"]),
                      "buffers": variables["buffers"]}
+
+
+def run_regression(
+    adapter: ModelAdapter,
+    targets: dict[str, np.ndarray],
+    cfg: TrainConfig,
+    generator: torch.Generator | None = None,
+    variables: dict | None = None,
+    checkpointer=None,
+) -> tuple[dict, dict]:
+    """Train a node regressor; returns (result, variables).
+
+    The SEIR protocol, as the JAX package runs it: chunks of
+    ``eval_every`` epochs with no evaluation between them, then val and
+    test scored once, at the end, by an eager forward without grad (each
+    window from the model's own initial state: the carry is ``()``) and
+    ``metrics.l1_and_ratio``. Result: {"train_loss": (n_epochs,), "val_l1",
+    "val_l1_ratio", "test_l1", "test_l1_ratio"}. ``variables``,
+    ``generator``: as ``_prepare`` takes them.
+    """
+    chunks, eval_forward, variables = train_chunks(
+        adapter, targets["train"], None, cfg, task="regression", generator=generator,
+        variables=variables, checkpointer=checkpointer,
+    )
+    losses = np.zeros(cfg.n_epochs)
+    chunk = max(1, cfg.eval_every)
+    ep = 0
+    while ep < cfg.n_epochs:
+        k = min(chunk, cfg.n_epochs - ep)
+        chunks(k)
+        losses[ep : ep + k] = chunks.stats(k)[:, 0].cpu().numpy()
+        if cfg.verbose:
+            print(f"ep {ep + k - 1}: train mse {losses[ep + k - 1]:.5f}")
+        ep += k
+
+    result = {"train_loss": losses}
+    for wname in ("val", "test"):
+        out, _ = eval_forward(wname, ())
+        l1, ratio = M.l1_and_ratio(out.cpu().numpy(), targets[wname])
+        result[f"{wname}_l1"] = l1
+        result[f"{wname}_l1_ratio"] = ratio
+    return result, {"params": _tree_map(torch.Tensor.detach, variables["params"]),
+                    "buffers": variables["buffers"]}

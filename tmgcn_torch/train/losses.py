@@ -1,11 +1,12 @@
 """Loss functions matching the reference training objectives (port of
-tmgcn_tpu.train.losses: the classification and link-prediction losses).
+tmgcn_tpu.train.losses).
 
 Capability reference: weighted ``nn.CrossEntropyLoss`` in every
 classification/link-prediction script (e.g. TensorGCN-master/
 experiment_bitcoin_our.py:113) — weighted mean: Σ w[y_i]·ce_i / Σ w[y_i];
-and the sigmoid loss_type of the link-prediction scripts (unused by the
-presets but supported).
+the per-slice-summed MSE of the SEIR regression scripts
+(test_graph_SEIR.py:135-140); and the sigmoid loss_type of the
+link-prediction scripts (unused by the presets but supported).
 """
 
 from __future__ import annotations
@@ -38,3 +39,8 @@ def sigmoid_pair_logits(out: torch.Tensor) -> torch.Tensor:
     """loss_type='sigmoid': map (E, 1) outputs to (E, 2) as [p, 1-p]."""
     p = torch.sigmoid(out)
     return torch.cat([p, 1.0 - p], dim=1)
+
+
+def summed_per_slice_mse(pred: torch.Tensor, truth: torch.Tensor) -> torch.Tensor:
+    """Σ over slices of the mean squared error within the slice -> scalar."""
+    return torch.sum(torch.mean((pred - truth) ** 2, dim=tuple(range(1, pred.ndim))))

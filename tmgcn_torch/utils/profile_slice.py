@@ -1,17 +1,20 @@
-"""Where the time of a warm chess epoch goes, on the card.
+"""Where the time of a warm epoch goes, on the card.
 
     python -m tmgcn_torch.utils.profile_slice [PRESET [SPMM_IMPL]]
 
 PRESET is chess_tmgcn_cls (the default), chess_tmgcn2_cls or chess_gcn_cls,
 each run with spmm_impl="pallas" unless SPMM_IMPL names another, or
-chess_wdgcn_cls, chess_wdgcn_lp, chess_evolvegcn_cls, chess_evolvegcn2_cls
-or chess_evolvegcn_lp (the preset's own spmm_impl). Builds the preset's
-experiment once (device cuda, data in data/chess), warms the loop up with
-one run, then:
+chess_wdgcn_cls, chess_wdgcn_lp, chess_evolvegcn_cls, chess_evolvegcn2_cls,
+chess_evolvegcn_lp, or the SEIR regression presets seir_tmgcn_reg_tuned,
+seir_wdgcn_reg_tuned and seir_evolvegcn_reg_tuned (the preset's own
+spmm_impl: "pallas" for the first two). Builds the preset's experiment once
+(device cuda; chess data in data/chess, SEIR data generated), warms the
+loop up with one run, then:
 
-  * times REPEATS warm runs of EPOCHS epochs each (two evaluation epochs;
-    each run captures its step anew): median, quartiles and extremes of ms
-    per epoch;
+  * times REPEATS warm runs of EPOCHS epochs each (two evaluation epochs,
+    or for regression val and test scored once at the end; each run
+    captures its step anew): median, quartiles and extremes of ms per
+    epoch;
   * times chunks of plain epochs alone, captured (as the loop runs them on
     the card) and eager (the loop's reference steps), in turns, by
     ``timed_chunks`` (bench.py's rule);
@@ -52,6 +55,9 @@ PRESETS = {
     "chess_evolvegcn_cls": {},
     "chess_evolvegcn2_cls": {},
     "chess_evolvegcn_lp": {},
+    "seir_tmgcn_reg_tuned": {},
+    "seir_wdgcn_reg_tuned": {},
+    "seir_evolvegcn_reg_tuned": {},
 }
 
 
@@ -77,7 +83,7 @@ def build_runner(preset: str, spmm_impl: str | None = None):
     """(cfg, run, make_chunk) for one preset on the card: the experiment is
     built once; ``run(n_epochs, eval_every=cfg.eval_every)`` trains from the
     preset's initial parameters each time, through the loop users run, at
-    the preset's first alpha; ``make_chunk(eager=False)`` is
+    the preset's first alpha (none for regression); ``make_chunk(eager=False)`` is
     ``chunk_runner`` on the same adapter, alpha and initial parameters."""
     if preset not in PRESETS:
         raise SystemExit(f"profile_slice profiles one of {sorted(PRESETS)}, not {preset!r}")
@@ -86,7 +92,7 @@ def build_runner(preset: str, spmm_impl: str | None = None):
     overrides = dict(PRESETS[preset], **({"spmm_impl": spmm_impl} if spmm_impl else {}))
     cfg = dataclasses.replace(get_preset(preset), **overrides)
     exp = build_experiment(cfg, data_dir=DATA_DIR, device="cuda")
-    (alpha, *_) = cfg.alpha_vec
+    alpha = None if cfg.task == "regression" else cfg.alpha_vec[0]
 
     def run(n_epochs, eval_every=cfg.eval_every):
         tcfg = dataclasses.replace(train_config(cfg, n_epochs), eval_every=eval_every)
