@@ -158,6 +158,22 @@ non-zero, and nothing falls back to the CPU:
                   nodes, 50 slices, every LP edge), 300 epochs cut to 100,
                   each with a warm rerun, vs eager, 5 epochs against the
                   CPU; the host scoring of one SBM evaluation epoch;
+               n. resume: checkpoint -> resume -> predict (train/checkpoint.py,
+                  ``cli predict``), checkpoints under build/ and removed
+                  after: chess_tmgcn2_cls with "pallas", its experiment built
+                  once, 200 epochs without and (a) with checkpoints (rows
+                  bitwise; 404 K1 each), (b) 101 epochs saving at 0 and 100
+                  (206), (c) a resume of (b) to 200 (200 K1: 2 x 99 steps and
+                  one evaluation's val and test; train columns from 101 on
+                  bitwise (a)'s); ``cli predict --window val`` from (a)'s
+                  checkpoint of epoch 100 (5 K1: 3 cached propagations, the
+                  train and val forwards): its val F1 is row 100's, within
+                  its logits' tie range; seir_wdgcn_reg_tuned 300 epochs, 200
+                  saving at 99 and 199, resumed to 300 (102 K1): losses and
+                  val/test L1 bitwise; chess_evolvegcn_lp 5 epochs saving
+                  (5 K1), then predict threading its carry: MAP and MRR in
+                  [0, 1]; each checkpoint save, load and in-place restore
+                  timed, beside the card's name and power limit;
   8. capture — chess_tmgcn_cls (pallas), chess_tmgcn2_cls (pallas and the
                preset's jnp), chess_wdgcn_cls, chess_wdgcn_lp,
                chess_evolvegcn_cls, chess_evolvegcn2_cls,
@@ -187,6 +203,7 @@ import statistics
 import subprocess
 import sys
 import time
+from pathlib import Path
 from unittest import mock
 
 try:  # the card's data-sheet peaks: float32 outside the tensor cores, HBM3
@@ -1977,6 +1994,245 @@ def phase_synthetic(torch, np, tk) -> dict[str, tuple]:
     return counts
 
 
+# Checkpoints of the resume phase: inside the checkout, under the build
+# directory git ignores; removed when the phase ends.
+CKPT_DIR = "build/chip_smoke_checkpoints"
+RESUME_SAVED = 101  # the interrupted chess run's epochs: it saves at 0 and 100
+SEIR_SAVED = 200  # the interrupted SEIR run's epochs: it saves at 99 and 199
+CARRY_EPOCHS = 5  # chess_evolvegcn_lp's checkpoint for predict with a carry
+
+
+@contextlib.contextmanager
+def _timed_checkpoints(torch, times: dict):
+    """Every checkpoint save, load and in-place restore of the training
+    loop and ``cli predict``, timed on the host clock after a synchronize,
+    into ``times`` ({"save", "load", "restore"}: lists of seconds; a
+    lookup that finds no checkpoint is not timed)."""
+    from tmgcn_torch.train import checkpoint, loop
+
+    def timed(name, fn):
+        @functools.wraps(fn)
+        def call(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            if out is not None or name == "save":  # not the lookups of an empty directory
+                times.setdefault(name, []).append(time.perf_counter() - t0)
+            return out
+        return call
+
+    Ck = checkpoint.RunCheckpointer
+    with mock.patch.object(Ck, "save", timed("save", Ck.save)), \
+            mock.patch.object(Ck, "restore", timed("load", Ck.restore)), \
+            mock.patch.object(loop, "_restore", timed("restore", loop._restore)):
+        yield
+
+
+def _predict(tk, argv: list, out_path):
+    """``cli predict`` in process, counted: (its .npz, the launch counts)."""
+    import numpy as np
+
+    from tmgcn_torch import cli
+
+    argv = [*argv, "--device", DEVICE, "--out", str(out_path)]
+    rc, launches = _counted(tk, lambda: cli.main(argv))
+    check(rc == 0, f"cli {' '.join(argv)} exited {rc}")
+    return np.load(out_path), launches
+
+
+def phase_resume(torch, np, tk, card: str) -> dict[str, tuple]:
+    """Checkpoint -> resume -> predict on the card, through the loops and
+    the CLI (train/checkpoint.py, cli predict). chess_tmgcn2_cls with
+    "pallas" (K1 in the restricted layer 2's forward and backward, each
+    step a replay of the captured graph), its experiment built once: a
+    200-epoch run without checkpoints; (a) the same with a checkpoint
+    directory (rows bitwise equal: saving changes nothing); (b) 101 epochs
+    into a second directory (saves at 0 and 100); (c) a resume of (b) to
+    200 epochs: its state copied into the step's tensors before the
+    capture, an evaluation epoch at 101, then 98 replays; its train columns
+    from 101 on bitwise (a)'s, its first 101 rows (a)'s; K1 launches exact.
+    ``cli predict --window val`` from (a)'s directory (the checkpoint of
+    epoch 100, the newest): its val F1 is row 100's, within the tie range
+    of its logits. seir_wdgcn_reg_tuned (K1 once a step): 300 epochs, then
+    200 epochs that save at 99 and 199 and a resume to 300: losses and
+    val/test L1 bitwise the uninterrupted run's. chess_evolvegcn_lp (a
+    carry): a 5-epoch checkpoint, then predict: MAP and MRR in [0, 1]."""
+    import shutil
+
+    root = Path(CKPT_DIR)
+    shutil.rmtree(root, ignore_errors=True)
+    counts, times = {}, {}
+    try:
+        with _timed_checkpoints(torch, times):
+            for part in (_resume_chess, _resume_seir, _predict_with_carry):
+                counts.update(part(torch, np, tk, root))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    for name in ("save", "load", "restore"):
+        t = times.get(name, [])
+        check(bool(t), f"resume: no checkpoint {name} was timed")
+        print(f"resume: checkpoint {name} x{len(t)}: median {1e3 * statistics.median(t):.6f} ms, "
+              f"max {1e3 * max(t):.6f} ms, each {[round(1e3 * x, 6) for x in t]} ms [{card}]")
+    return counts
+
+
+def _resume_chess(torch, np, tk, root) -> dict[str, tuple]:
+    from tmgcn_torch.configs.build import build_experiment, run_trial, train_config
+    from tmgcn_torch.configs.presets import get_preset
+    from tmgcn_torch.tasks import metrics as M
+    from tmgcn_torch.train.checkpoint import RunCheckpointer
+
+    cfg = dataclasses.replace(get_preset("chess_tmgcn2_cls"), spmm_impl="pallas")
+    (alpha,) = cfg.alpha_vec
+    exp = build_experiment(cfg, DATA_DIR, None, DEVICE)
+    name = "chess_tmgcn2_cls (pallas)"
+
+    def run(n, ck=None):
+        gen = torch.Generator().manual_seed(cfg.seed)  # run_experiment's first run
+        return _counted(tk, lambda: run_trial(exp, train_config(cfg, n), alpha, gen, ck))
+
+    def k1(steps, evals):
+        # The restricted layer 2's forward and backward a step; its forward
+        # for val and for test at each evaluation epoch.
+        return (2 * steps + 2 * evals, 0, 0, 0, 0, 0, 0)
+
+    ev = cfg.eval_every
+    counts = {}
+    plain, launches = run(EPOCHS)
+    check(launches == k1(EPOCHS, 2), f"{name}: launched {launches}, expected {k1(EPOCHS, 2)}")
+    # run_experiment's layout, <dir>/<preset>/<run tag>, which predict reads.
+    tag = f"tr0_w{round(alpha * 100)}"
+    dir_a, dir_b = root / "a" / cfg.name / tag, root / "b" / cfg.name / tag
+    t0 = time.perf_counter()
+    rows_a, launches = run(EPOCHS, RunCheckpointer(dir_a))
+    t_a = time.perf_counter() - t0
+    check(launches == k1(EPOCHS, 2), f"{name} (a): launched {launches}")
+    check(np.array_equal(rows_a, plain, equal_nan=True),
+          f"{name}: a run with checkpoints gave other rows than one without")
+    check(RunCheckpointer(dir_a).latest_epoch() == ev, f"{name} (a): newest checkpoint not {ev}")
+    counts[f"resume: {name} (a) {EPOCHS} epochs, saving"] = launches
+    rows_b, launches = run(RESUME_SAVED, RunCheckpointer(dir_b))
+    check(launches == k1(RESUME_SAVED, 2), f"{name} (b): launched {launches}")
+    check(RunCheckpointer(dir_b).latest_epoch() == RESUME_SAVED - 1,
+          f"{name} (b): newest checkpoint not {RESUME_SAVED - 1}")
+    counts[f"resume: {name} (b) {RESUME_SAVED} epochs"] = launches
+    t0 = time.perf_counter()
+    rows_c, launches = run(EPOCHS, RunCheckpointer(dir_b))
+    t_c = time.perf_counter() - t0
+    # The resume: an evaluation epoch at 101, then plain steps to 199.
+    steps_c = EPOCHS - RESUME_SAVED
+    expected = k1(steps_c, 1)
+    check(launches == expected, f"{name} (c): launched {launches}, expected {expected} "
+                                f"({steps_c} steps x 2 + 1 evaluation x 2)")
+    counts[f"resume: {name} (c) resumed {RESUME_SAVED} -> {EPOCHS}"] = launches
+    check(np.array_equal(rows_c[:RESUME_SAVED], rows_a[:RESUME_SAVED], equal_nan=True),
+          f"{name} (c): the restored rows differ from (a)'s")
+    same = np.array_equal(rows_c[RESUME_SAVED:, :4], rows_a[RESUME_SAVED:, :4], equal_nan=True)
+    check(same, f"{name} (c): train columns from {RESUME_SAVED} on differ from (a)'s: max abs "
+                f"diff {np.nanmax(np.abs(rows_c[:, :4] - rows_a[:, :4]))}")
+    print(f"resume {name}: (a) {EPOCHS} epochs saving at 0 and {ev}, rows bitwise the run "
+          f"without checkpoints, {t_a:.3f} s; (b) {RESUME_SAVED} epochs; (c) resumed at "
+          f"{RESUME_SAVED} to {EPOCHS} in {t_c:.3f} s ({steps_c} steps, 1 evaluation): rows "
+          f"0-{RESUME_SAVED - 1} (a)'s, train columns {RESUME_SAVED}-{EPOCHS - 1} bitwise (a)'s; "
+          f"K1 launches {launches[0]} = 2 x {steps_c} steps + 2 x 1 evaluation")
+
+    argv = ["predict", cfg.name, "--data-dir", DATA_DIR, "--spmm-impl", "pallas",
+            "--checkpoint-dir", str(root / "a"), "--window", "val"]
+    t0 = time.perf_counter()
+    z, launches = _predict(tk, argv, root / "val.npz")
+    t_p = time.perf_counter() - t0
+    # 3 cached propagations; the train and the val forward.
+    check(launches == (5, 0, 0, 0, 0, 0, 0), f"cli predict {cfg.name}: launched {launches}")
+    counts[f"resume: cli predict {cfg.name} --spmm-impl pallas"] = launches
+    check(int(z["epoch"]) == ev, f"predict restored epoch {int(z['epoch'])}, not {ev}")
+    s = exp.splits["val"]
+    logits, tgt = z["scores"][s.eval_mask], s.target[s.eval_mask]
+    f1 = M.precision_recall_f1(np.argmax(logits, 1), tgt)[2]
+    lo, hi = sorted(_f1_range(np, logits, tgt))
+    row = rows_a[ev, 6]
+    check(lo - 1e-12 <= row <= hi + 1e-12,
+          f"predict's val F1 range [{lo}, {hi}] misses row {ev}'s val F1 {row}")
+    print(f"cli predict {cfg.name} --window val (epoch {ev}): val F1 {f1:.6f}, row {ev}'s "
+          f"{row:.6f} ({'equal' if f1 == row else 'within the tie range'} [{lo:.6f}, {hi:.6f}]); "
+          f"{t_p:.3f} s with the experiment's build, K1 launches {launches[0]}")
+    return counts
+
+
+def _resume_seir(torch, np, tk, root) -> dict[str, tuple]:
+    from tmgcn_torch.configs.build import build_experiment, run_trial, train_config
+    from tmgcn_torch.configs.presets import get_preset
+    from tmgcn_torch.train.checkpoint import RunCheckpointer
+
+    cfg = get_preset("seir_wdgcn_reg_tuned")
+    exp = build_experiment(cfg, None, None, DEVICE)
+    n, ev = cfg.n_epochs, cfg.eval_every
+    name = f"{cfg.name} ({cfg.spmm_impl})"
+
+    def run(epochs, ck=None):
+        gen = torch.Generator().manual_seed(cfg.seed)
+        return _counted(tk, lambda: run_trial(exp, train_config(cfg, epochs), None, gen, ck))
+
+    counts = {}
+    full, launches = run(n)
+    check(launches == (n + 2, 0, 0, 0, 0, 0, 0), f"{name}: launched {launches}")
+    counts[f"resume: {name} {n} epochs"] = launches
+    ck = root / "seir"
+    _, launches = run(SEIR_SAVED, RunCheckpointer(ck))
+    check(launches == (SEIR_SAVED + 2, 0, 0, 0, 0, 0, 0), f"{name}: launched {launches}")
+    check(RunCheckpointer(ck).latest_epoch() == SEIR_SAVED - 1,
+          f"{name}: newest checkpoint not {SEIR_SAVED - 1}")
+    counts[f"resume: {name} {SEIR_SAVED} epochs, saving"] = launches
+    t0 = time.perf_counter()
+    resumed, launches = run(n, RunCheckpointer(ck))
+    t_r = time.perf_counter() - t0
+    expected = (n - SEIR_SAVED + 2, 0, 0, 0, 0, 0, 0)
+    check(launches == expected, f"{name} resumed: launched {launches}, expected {expected}")
+    counts[f"resume: {name} resumed {SEIR_SAVED} -> {n}"] = launches
+    check(_same_regression(np, resumed, full),
+          f"{name}: the resumed run's result differs from the uninterrupted run's")
+    print(f"resume {name}: {SEIR_SAVED} epochs saving at {ev - 1} and {SEIR_SAVED - 1}, resumed "
+          f"to {n} in {t_r:.3f} s: losses and val/test L1 bitwise the uninterrupted run's; K1 "
+          f"launches {launches[0]} = {n - SEIR_SAVED} steps + val + test")
+    return counts
+
+
+def _predict_with_carry(torch, np, tk, root) -> dict[str, tuple]:
+    from tmgcn_torch.configs.build import build_experiment, run_trial, train_config
+    from tmgcn_torch.configs.presets import get_preset
+    from tmgcn_torch.tasks import metrics as M
+    from tmgcn_torch.train.checkpoint import RunCheckpointer
+
+    cfg = get_preset("chess_evolvegcn_lp")
+    (alpha,) = cfg.alpha_vec
+    exp = build_experiment(cfg, DATA_DIR, None, DEVICE)
+    gen = torch.Generator().manual_seed(cfg.seed)
+    ck = root / "carry" / cfg.name / f"tr0_w{round(alpha * 100)}"
+    _, launches = _counted(tk, lambda: run_trial(exp, train_config(cfg, CARRY_EPOCHS), alpha,
+                                                   gen, RunCheckpointer(ck)))
+    check(launches == (CARRY_EPOCHS, 0, 0, 0, 0, 0, 0), f"{cfg.name}: launched {launches}")
+    counts = {f"resume: {cfg.name} {CARRY_EPOCHS} epochs, saving": launches}
+    argv = ["predict", cfg.name, "--data-dir", DATA_DIR, "--checkpoint-dir",
+            str(root / "carry"), "--window", "val"]
+    t0 = time.perf_counter()
+    z, launches = _predict(tk, argv, root / "carry.npz")
+    t_p = time.perf_counter() - t0
+    check(launches == (0, 0, 0, 0, 0, 0, 0), f"cli predict {cfg.name}: launched {launches}")
+    s = exp.splits["val"]
+    K = s.n_eval_tail
+    scores = z["scores"]
+    check(bool(np.all(np.isfinite(scores))), f"cli predict {cfg.name}: a score is not finite")
+    if K is not None:
+        mp, mr = M.map_mrr(scores[-K:], s.target[-K:], s.edges[:, -K:])
+    else:
+        keep = s.edges[0] != 0
+        mp, mr = M.map_mrr(scores, s.target[keep], s.edges[:, keep])
+    check(0 <= mp <= 1 and 0 <= mr <= 1, f"cli predict {cfg.name}: MAP {mp}, MRR {mr}")
+    print(f"cli predict {cfg.name} --window val (epoch {int(z['epoch'])}, the carry threaded "
+          f"train -> val): MAP {mp:.6f} MRR {mr:.6f}, {t_p:.3f} s with the experiment's build")
+    return counts
+
+
 # The paths timed captured against eager: (preset, spmm_impl or None for
 # the preset's own).
 TIMED_PATHS = (("chess_tmgcn_cls", "pallas"), ("chess_tmgcn2_cls", "pallas"),
@@ -2093,6 +2349,8 @@ def _phases(np, torch, tk, scale_bench) -> int:
             by_path.update(phase(torch, np, tk, e_train))
     with _timed("paths: regression and SBM"):
         by_path.update(phase_synthetic(torch, np, tk))
+    with _timed("resume: checkpoints, resume and predict"):
+        by_path.update(phase_resume(torch, np, tk, card))
     by_path.update(fast_counts)
     with _timed("capture timing"):
         profiles = phase_capture_timing(torch, card)

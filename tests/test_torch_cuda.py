@@ -644,6 +644,69 @@ def test_chunks_replay_one_captured_step(cuda_device):
     assert len(torch.unique(stats[:, 0])) == 4  # four steps, four losses
 
 
+@pytest.mark.parametrize("optimizer", ["sgd", "adam"])
+def test_resumed_captured_run_matches_uninterrupted(cuda_device, optimizer, tmp_path):
+    """8 epochs, eval_every 3, on the card; then 4 epochs that save and a
+    resume to 8 (its evaluation epochs shifted by one): the resumed run's
+    train columns (precision, recall, F1, loss) are bitwise the
+    uninterrupted run's, each run's steps replays of its captured graph."""
+    from tmgcn_torch.tasks.adapters import make_edge_adapter
+    from tmgcn_torch.train import loop
+    from tmgcn_torch.train.checkpoint import RunCheckpointer
+
+    model, M, adj, feats, edges, splits = _cls_problem("tmgcn2", "pallas")
+    ad = make_edge_adapter(model, adj, feats, edges, M=M, device=cuda_device)
+    variables = model.init(torch.Generator().manual_seed(0))
+    opt = {"optimizer": "adam", "grad_clip": 1.0} if optimizer == "adam" else {}
+    cw = np.array([0.2, 0.5, 0.3])
+
+    def run(n, ck=None):
+        cfg = loop.TrainConfig(n_epochs=n, eval_every=3, **opt)
+        return loop.run_edge_classification(ad, splits, cw, cfg, variables=variables,
+                                            checkpointer=ck)[0]
+
+    full = run(8)
+    ck = RunCheckpointer(tmp_path / "run")
+    run(4, ck)
+    assert ck.latest_epoch() == 3
+    resumed = run(8, ck)
+    assert ck.latest_epoch() == 7
+    np.testing.assert_array_equal(resumed[:, :4], full[:, :4])
+    np.testing.assert_array_equal(resumed[:4], full[:4])
+
+
+@pytest.mark.parametrize("optimizer", ["sgd", "adam"])
+def test_restore_into_a_captured_step(cuda_device, optimizer, tmp_path):
+    """A checkpoint restored into a step that is already captured: the
+    params and the optimizer state are copied into the graph's own
+    tensors (every data_ptr unchanged), and the replays that follow repeat
+    the steps taken after the save, bitwise."""
+    from tmgcn_torch.tasks.adapters import make_edge_adapter
+    from tmgcn_torch.train import loop
+    from tmgcn_torch.train.checkpoint import RunCheckpointer
+
+    model, M, adj, feats, edges, splits = _cls_problem("tmgcn2", "pallas")
+    ad = make_edge_adapter(model, adj, feats, edges, M=M, device=cuda_device)
+    opt = {"optimizer": "adam", "grad_clip": 1.0} if optimizer == "adam" else {}
+    cfg = loop.TrainConfig(**opt)
+    chunks, _, variables = loop.train_chunks(ad, splits["train"], np.ones(3) / 3, cfg,
+                                             capacity=8)
+    assert type(chunks) is loop._CapturedChunks
+    chunks(3)
+    step_opt = chunks.step.opt
+    tensors = [*loop._tree_leaves(variables["params"]), *step_opt.mu, *step_opt.nu]
+    tensors += [step_opt.count] if step_opt.count is not None else []
+    ptrs = [t.data_ptr() for t in tensors]
+    ck = RunCheckpointer(tmp_path / "run")
+    loop._save(ck, 2, chunks, np.zeros((3, 12)))
+    chunks(2)
+    after_save = chunks.stats(2).cpu()
+    assert loop._restore(ck, variables["params"], step_opt)[0] == 2
+    assert [t.data_ptr() for t in tensors] == ptrs
+    chunks(2)
+    assert torch.equal(chunks.stats(2).cpu(), after_save)
+
+
 def test_a_host_sync_in_the_step_raises(cuda_device):
     """A step that reads the card from the host fails loudly, naming the
     operation, before anything is captured; nothing falls back."""

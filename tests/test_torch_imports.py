@@ -37,6 +37,9 @@ assert "tmgcn_torch.tasks.sampling" in names  # the negative sampler keeps its o
 assert {"tmgcn_torch.utils.profiling", "tmgcn_torch.utils.spmm_bench"} <= set(names)
 # the synthetic data keep their own copies of the JAX package's generators
 assert {"tmgcn_torch.preprocess.seir", "tmgcn_torch.preprocess.sbm"} <= set(names)
+# so do the checkpoints, the raw-file generators and the fetcher
+assert {"tmgcn_torch.train.checkpoint", "tmgcn_torch.preprocess.synthetic_raw",
+        "tmgcn_torch.preprocess.fetch"} <= set(names)
 for name in names:
     importlib.import_module(name)
 import chip_smoke
@@ -94,8 +97,8 @@ def test_cli_list(capsys):
     "preset,kwargs",
     [
         ("chess_evolvegcn2_cls", {"mesh_shape": (2, 1)}),
-        ("chess_tmgcn_lp", {"checkpoint_dir": "ck"}),
-        ("chess_tmgcn_cls", {"checkpoint_dir": "ck"}),
+        ("chess_tmgcn_lp", {"mesh_shape": (1, 2)}),
+        ("chess_tmgcn_cls", {"mesh_shape": (4, 1), "checkpoint_dir": "ck"}),
         ("chess_tmgcn_cls", {"mesh_shape": (2, 1)}),
     ],
 )

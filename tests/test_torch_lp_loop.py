@@ -142,10 +142,17 @@ def _small_adapter():
 @pytest.mark.parametrize("kwargs,error,match", [
     ({"loss_type": "hinge"}, ValueError, "loss_type"),
     ({"eval_type": "AUC"}, ValueError, "eval_type"),
-    ({"checkpointer": object()}, NotImplementedError, "item 13"),
+    # A checkpoint past the run's 2 epochs (a 5-epoch run's, saved at 3).
+    ({"checkpointer": "past"}, ValueError, "past this run's"),
 ])
-def test_run_link_prediction_rejects(kwargs, error, match):
+def test_run_link_prediction_rejects(kwargs, error, match, tmp_path):
     splits, adapter = _small_adapter()
+    if kwargs.get("checkpointer") == "past":
+        from tmgcn_torch.train.checkpoint import RunCheckpointer
+
+        kwargs = {"checkpointer": RunCheckpointer(tmp_path / "ck")}
+        tloop.run_link_prediction(adapter, splits, CW, tloop.TrainConfig(n_epochs=5, eval_every=3),
+                                  **kwargs)
     with pytest.raises(error, match=match):
         tloop.run_link_prediction(adapter, splits, CW, tloop.TrainConfig(n_epochs=2), **kwargs)
 

@@ -379,8 +379,9 @@ def test_chess_run_experiment_on_the_cpu(chess):
 
 @pytest.mark.parametrize("preset", ["seir_wdgcn_reg", "seir_wdgcn_reg_tuned"])
 def test_unported_wdgcn_tasks_raise(preset):
-    """WD-GCN regression itself runs (tests/test_torch_regression.py); on a
-    device mesh and with checkpoints it is not ported yet."""
-    for kwargs in ({"mesh_shape": (2, 1)}, {"checkpoint_dir": "ck"}):
+    """WD-GCN regression itself runs (tests/test_torch_regression.py), and
+    with checkpoints (tests/test_torch_checkpoint.py); on a device mesh it
+    is not ported yet, with or without checkpoints."""
+    for kwargs in ({"mesh_shape": (2, 1)}, {"mesh_shape": (1, 2), "checkpoint_dir": "ck"}):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             tbuild.run_experiment(tpresets.get_preset(preset), device="cpu", **kwargs)

@@ -8,14 +8,16 @@ counterpart is found under the same path; the JAX package stays the
 reference the port is held against.
 
 Layout (the ported part so far: TM-GCN (1 and 2 layers), KW-GCN,
-EvolveGCN-H and WD-GCN, edge classification and link prediction):
+EvolveGCN-H and WD-GCN; edge classification, link prediction and node
+regression; checkpoints and resume; the CLI but for multi-device runs):
     core/        temporal sparse tensor container, M-matrix constructors
     ops/         SpMM, M-transform, degree features, edge readout
     kernels/     hand-written CUDA kernels (csrc/) and their wrappers
     models/      TM-GCN, KW-GCN, EvolveGCN-H, WD-GCN
-    preprocess/  raw edge lists -> normalized temporal adjacency tensors
+    preprocess/  raw edge lists -> normalized temporal adjacency tensors;
+                 the synthetic raw files and the real-data fetcher
     tasks/       windows, negative sampling, adapters, metrics
-    train/       training loop, losses, metric logging
+    train/       training loop, losses, checkpoints, metric logging
     configs/     experiment presets and run assembly
     utils/       epoch profiling and the large-graph scale benchmark
 

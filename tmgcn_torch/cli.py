@@ -20,14 +20,24 @@
     python -m tmgcn_torch.cli run sbm_tmgcn_lp_tuned --epochs 300
                              # SBM link prediction (also sbm_evolvegcn_lp[_tuned],
                              # sbm_tmgcn_lp and sbm_tmgcn_lp_spectral); generated
+    python -m tmgcn_torch.cli run chess_tmgcn2_cls --data-dir data/chess \
+        --spmm-impl pallas --epochs 1000 --checkpoint-dir ck/
+                             # saves after each evaluation epoch (regression: each
+                             # chunk) under ck/<preset>/<tr0_w90>; run it again to
+                             # resume from the newest checkpoint there
+    python -m tmgcn_torch.cli predict chess_tmgcn2_cls --data-dir data/chess \
+        --spmm-impl pallas --checkpoint-dir ck/ --window val --out scores.npz
+    python -m tmgcn_torch.cli synth [--dataset uci] --out data/synthetic --seed 0
+    python -m tmgcn_torch.cli preprocess uci --data-dir data/synthetic/uci
+    python -m tmgcn_torch.cli fetch bitcoin_otc --data-root data/real   # downloads
 
-``run`` uses the card (``--device cuda``, the default) and fails if there
-is none; ``--device cpu`` runs the plain PyTorch path on the CPU. The
-results pickles hold each run's (epochs, 12) F1 rows or, for link
+``run`` and ``predict`` use the card (``--device cuda``, the default) and
+fail if there is none; ``--device cpu`` runs the plain PyTorch path on the
+CPU. The results pickles hold each run's (epochs, 12) F1 rows or, for link
 prediction, its (epochs, 9) MAP-MRR rows; for regression, its result dict
-(the per-epoch train losses, val and test L1 and L1 ratio). The JAX
-package's ``preprocess``, ``synth``, ``fetch`` and ``predict`` commands are
-not ported yet (ROADMAP queue 1, item 13).
+(the per-epoch train losses, val and test L1 and L1 ratio). Checkpoints
+are the port's own files (``train/checkpoint.py``), not the JAX package's
+Orbax directories. Not ported: ``run --mesh`` and ``run --debug-nans``.
 """
 
 from __future__ import annotations
@@ -49,6 +59,132 @@ def _cmd_list(args) -> int:
     for name in sorted(PRESETS):
         cfg = PRESETS[name]
         print(f"{name:32s} dataset={cfg.dataset:14s} method={cfg.method:10s} task={cfg.task}")
+    return 0
+
+
+def _cmd_preprocess(args) -> int:
+    from tmgcn_torch.preprocess.datasets import REGISTRY, load_raw
+    from tmgcn_torch.preprocess.matio import save_artifact
+    from tmgcn_torch.preprocess.pipeline import preprocess
+
+    spec = REGISTRY[args.dataset]
+    t0 = time.time()
+    raw = load_raw(spec, args.data_dir)
+    data = preprocess(raw, spec.preprocess)
+    out = Path(args.out or args.data_dir) / f"saved_content_{args.dataset}.mat"
+    out.parent.mkdir(parents=True, exist_ok=True)  # the JAX CLI fails on a new --out
+    save_artifact(out, data)
+    print(
+        f"{args.dataset}: N={raw.n_nodes} T={raw.n_slices} "
+        f"edges={len(raw.src)} -> {out} in {time.time() - t0:.1f}s"
+    )
+    return 0
+
+
+def _cmd_synth(args) -> int:
+    from tmgcn_torch.preprocess.synthetic_raw import SYNTH, generate
+
+    names = [args.dataset] if args.dataset else sorted(SYNTH)
+    for name in names:
+        path = generate(name, Path(args.out) / name, seed=args.seed)
+        print(f"{name}: {path}")
+    return 0
+
+
+def _cmd_fetch(args) -> int:
+    from tmgcn_torch.preprocess.fetch import fetch, fetch_all
+
+    if args.dataset == "all":
+        res = fetch_all(args.data_root)
+        return 1 if any(str(v).startswith("FAILED") for v in res.values()) else 0
+    fetch(args.dataset, args.data_root)
+    return 0
+
+
+def _cmd_predict(args) -> int:
+    """Inference: restore a trained checkpoint and score a window's edges.
+
+    Rebuilds the preset's adapter on the device, restores the newest
+    checkpoint that ``run --checkpoint-dir`` saved for (trial, alpha)
+    (params and frozen buffers), threads the carry train -> val -> test
+    from ``initial_carry`` as the training loops do, prints the window's
+    metrics and writes its per-edge scores, edges and the epoch to
+    ``--out``.
+    """
+    import torch
+
+    from tmgcn_torch.configs.build import build_experiment, run_tag
+    from tmgcn_torch.configs.presets import get_preset
+    from tmgcn_torch.tasks import metrics as M
+    from tmgcn_torch.train.checkpoint import RunCheckpointer
+
+    cfg = get_preset(args.preset)
+    if args.seed is not None:
+        cfg = dataclasses.replace(cfg, seed=args.seed)
+    if args.spmm_impl is not None:
+        cfg = dataclasses.replace(cfg, spmm_impl=args.spmm_impl)
+    if cfg.task not in ("edge_cls", "link_pred"):
+        raise SystemExit(f"predict supports edge_cls/link_pred, not {cfg.task!r}")
+    alphas = cfg.alpha_vec or (None,)
+    alpha = args.alpha if args.alpha is not None else alphas[0]
+    tag = run_tag(args.trial, alpha)
+    ck = RunCheckpointer(Path(args.checkpoint_dir) / cfg.name / tag)
+    if ck.latest_epoch() is None:
+        raise SystemExit(f"no checkpoint under {args.checkpoint_dir}/{cfg.name}/{tag}")
+    exp = build_experiment(cfg, args.data_dir, args.artifact, args.device)
+    adapter, splits = exp.adapter, exp.splits
+
+    # The checkpoint carries params AND frozen buffers; the draw here only
+    # gives their shapes, dtypes and device.
+    variables = adapter.init(torch.Generator().manual_seed(cfg.seed))
+    step, params, buffers = ck.restore_inference(variables["params"], variables["buffers"])
+    ck.close()
+    variables = {"params": params, "buffers": buffers}
+
+    # The training loop's full float32 matmuls.
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    carry = adapter.initial_carry(variables)
+    with torch.no_grad():
+        for w in ("train", "val", "test"):
+            out, carry = adapter.apply(variables, adapter.bundles[w], carry)
+            if w == args.window:
+                out = out.cpu().numpy()
+                break
+    s = splits[args.window]
+
+    if cfg.task == "link_pred" and cfg.loss_type == "sigmoid":
+        p = 1.0 / (1.0 + np.exp(-out.astype(np.float64)))
+        out = np.concatenate([p, 1.0 - p], axis=1)
+
+    if cfg.task == "edge_cls":
+        mask = s.eval_mask
+        prec, rec, f1 = M.precision_recall_f1(np.argmax(out[mask], 1), s.target[mask])
+        print(
+            f"{cfg.name} [{args.window}] epoch {step}: "
+            f"precision {prec:.4f} recall {rec:.4f} f1 {f1:.4f} "
+            f"({int(mask.sum())} eval edges)"
+        )
+        edges_out = s.edges
+    else:
+        if s.n_eval_tail is not None:
+            K = s.n_eval_tail
+            out_np, tgt_np, metric_edges = out[-K:], s.target[-K:], s.edges[:, -K:]
+        else:
+            keep = s.edges[0] != 0
+            out_np, tgt_np, metric_edges = out, s.target[keep], s.edges[:, keep]
+        mp, mr = M.map_mrr(out_np, tgt_np, metric_edges)
+        print(
+            f"{cfg.name} [{args.window}] epoch {step}: "
+            f"MAP {mp:.4f} MRR {mr:.4f} ({out_np.shape[0]} eval edges)"
+        )
+        edges_out = s.model_edges
+
+    if args.out:
+        path = Path(args.out)
+        path.parent.mkdir(parents=True, exist_ok=True)
+        np.savez_compressed(path, scores=out, edges=edges_out, epoch=step)
+        print(f"wrote {path}")
     return 0
 
 
@@ -77,6 +213,7 @@ def _cmd_run(args) -> int:
             n_epochs=args.epochs,
             alpha_vec=alphas,
             verbose=not args.quiet,
+            checkpoint_dir=args.checkpoint_dir,
             device=args.device,
         )
     elapsed = time.time() - t0
@@ -115,6 +252,27 @@ def main(argv=None) -> int:
 
     sub.add_parser("list", help="list experiment presets")
 
+    sp = sub.add_parser("synth", help="generate synthetic raw dataset files")
+    sp.add_argument("--dataset", help="one dataset (default: all)")
+    sp.add_argument("--out", default="data/synthetic")
+    sp.add_argument("--seed", type=int, default=0)
+
+    pp = sub.add_parser("preprocess", help="raw edge list -> .mat artifact")
+    pp.add_argument("dataset")
+    pp.add_argument("--data-dir", required=True)
+    pp.add_argument("--out")
+
+    fp = sub.add_parser(
+        "fetch",
+        help="download a REAL dataset (URL+sha256 manifest, "
+             "preprocess/fetch.py) into --data-root/<name>/",
+    )
+    fp.add_argument("dataset", help="dataset name or 'all'")
+    fp.add_argument("--data-root", default="data/real")
+
+    spmm_impls = ["jnp", "rowsplit", "pallas", "pallas_bf16", "pallas_tiled",
+                  "pallas_tiled_bf16", "blockdense", "blockdense_bf16"]
+    device_help = "torch device to run on (default cuda; cpu runs the plain path)"
     rp = sub.add_parser("run", help="run an experiment preset")
     rp.add_argument("preset")
     rp.add_argument("--data-dir")
@@ -122,28 +280,39 @@ def main(argv=None) -> int:
     rp.add_argument("--epochs", type=int)
     rp.add_argument("--alphas", type=float, nargs="*")
     rp.add_argument("--out")
+    rp.add_argument("--checkpoint-dir",
+                    help="save each run under DIR/<preset>/<run tag>, resuming from the "
+                         "newest checkpoint there")
     rp.add_argument(
         "--spmm-impl",
-        choices=["jnp", "rowsplit", "pallas", "pallas_bf16", "pallas_tiled",
-                 "pallas_tiled_bf16", "blockdense", "blockdense_bf16"],
+        choices=spmm_impls,
         help="override the preset's SpMM implementation (pallas* = the CUDA kernels: "
              "K1, its bf16-gather tier, K3 and its bf16 tier)",
     )
     rp.add_argument("--seed", type=int)
-    rp.add_argument(
-        "--device", default="cuda",
-        help="torch device to run on (default cuda; cpu runs the plain path)",
-    )
+    rp.add_argument("--device", default="cuda", help=device_help)
     rp.add_argument("--quiet", action="store_true")
     rp.add_argument("--profile", metavar="DIR",
                     help="trace the run with torch.profiler into DIR/trace.json")
 
+    pp2 = sub.add_parser("predict", help="restore a checkpoint and score a window's edges")
+    pp2.add_argument("preset")
+    pp2.add_argument("--data-dir")
+    pp2.add_argument("--artifact")
+    pp2.add_argument("--checkpoint-dir", required=True)
+    pp2.add_argument("--window", choices=["train", "val", "test"], default="test")
+    pp2.add_argument("--trial", type=int, default=0)
+    pp2.add_argument("--alpha", type=float)
+    pp2.add_argument("--seed", type=int)
+    pp2.add_argument("--spmm-impl", choices=spmm_impls,
+                     help="the SpMM implementation the run was trained with")
+    pp2.add_argument("--device", default="cuda", help=device_help)
+    pp2.add_argument("--out", help="write scores/edges to this .npz")
+
     args = ap.parse_args(argv)
-    if args.cmd == "list":
-        return _cmd_list(args)
-    if args.cmd == "run":
-        return _cmd_run(args)
-    return 1
+    commands = {"list": _cmd_list, "synth": _cmd_synth, "preprocess": _cmd_preprocess,
+                "fetch": _cmd_fetch, "run": _cmd_run, "predict": _cmd_predict}
+    return commands[args.cmd](args)
 
 
 if __name__ == "__main__":

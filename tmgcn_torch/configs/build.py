@@ -53,6 +53,7 @@ from tmgcn_torch.tasks.windows import (
     split_edges_classification,
     window_features,
 )
+from tmgcn_torch.train.checkpoint import RunCheckpointer
 from tmgcn_torch.train.loop import (
     TrainConfig,
     run_edge_classification,
@@ -420,20 +421,24 @@ def train_config(cfg: ExperimentConfig, n_epochs: int | None = None,
 
 
 def run_trial(exp: Experiment, tcfg: TrainConfig, alpha: float | None,
-              generator: torch.Generator) -> np.ndarray | dict:
+              generator: torch.Generator, checkpointer=None) -> np.ndarray | dict:
     """One training run of the experiment's task at one alpha: its rows, or
-    for regression (alpha None) ``run_regression``'s result dict."""
+    for regression (alpha None) ``run_regression``'s result dict.
+    ``checkpointer``: the run's ``RunCheckpointer`` (saves, and resumes from
+    its newest checkpoint), or None."""
     if exp.cfg.task == "regression":
-        res, _ = run_regression(exp.adapter, exp.splits, tcfg, generator=generator)
+        res, _ = run_regression(exp.adapter, exp.splits, tcfg, generator=generator,
+                                checkpointer=checkpointer)
         return res
     cw = class_weights(exp.cfg, alpha)
     if exp.link_pred:
         res, _ = run_link_prediction(
-            exp.adapter, exp.splits, cw, tcfg, generator=generator,
+            exp.adapter, exp.splits, cw, tcfg, generator=generator, checkpointer=checkpointer,
             loss_type=exp.cfg.loss_type, eval_type=exp.cfg.eval_type,
         )
     else:
-        res, _ = run_edge_classification(exp.adapter, exp.splits, cw, tcfg, generator=generator)
+        res, _ = run_edge_classification(exp.adapter, exp.splits, cw, tcfg, generator=generator,
+                                         checkpointer=checkpointer)
     return res
 
 
@@ -469,11 +474,13 @@ def run_experiment(
     edge classification and link prediction with eval_type "F1", (epochs,
     9) for link prediction with "MAP-MRR". Regression runs once per trial,
     keyed (trial, None), as the JAX package runs it; its result is
-    ``run_regression``'s dict.
+    ``run_regression``'s dict. With ``checkpoint_dir`` each run saves under
+    ``checkpoint_dir/<cfg.name>/<run_tag(trial, alpha)>`` and resumes from
+    the newest checkpoint there; every run still draws its initial
+    parameters from the shared generator, so later runs start as they
+    would have.
     """
     device = resolve_device(device)
-    if checkpoint_dir is not None:
-        raise NotImplementedError("checkpoints are not ported yet (ROADMAP queue 1, item 13)")
     if mesh_shape is not None:
         raise NotImplementedError("multi-device runs are not ported yet (ROADMAP queue 1, item 14)")
     exp = build_experiment(cfg, data_dir, artifact, device)
@@ -485,7 +492,10 @@ def run_experiment(
     results: dict = {}
     for tr in range(cfg.n_trials):
         for alpha in (None,) if cfg.task == "regression" else alphas:
-            results[(tr, alpha)] = run_trial(exp, tcfg, alpha, generator)
+            ck = None
+            if checkpoint_dir is not None:
+                ck = RunCheckpointer(Path(checkpoint_dir) / cfg.name / run_tag(tr, alpha))
+            results[(tr, alpha)] = run_trial(exp, tcfg, alpha, generator, ck)
     t_train = time.perf_counter() - t0
     return {
         "results": results,

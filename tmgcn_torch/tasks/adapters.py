@@ -222,14 +222,24 @@ def _readout_fn(bundle: dict):
     return readout_operator(bundle["readout"])
 
 
+def _no_carry(variables: dict) -> tuple:
+    return ()
+
+
 @dataclasses.dataclass
 class ModelAdapter:
-    """Uniform (variables, bundle, carry) -> (output, carry) interface."""
+    """Uniform (variables, bundle, carry) -> (output, carry) interface.
+
+    ``initial_carry(variables)``: the carry a forward of the train window
+    starts from when the loops' threading is replayed outside them (``cli
+    predict``): EvolveGCN-H's frozen initial weights, ``()`` for the
+    others."""
 
     init: Callable[[torch.Generator], dict]
     apply: Callable[[dict, dict, Any], tuple[torch.Tensor, Any]]
     bundles: dict[str, dict]
     device: torch.device
+    initial_carry: Callable[[dict], tuple] = _no_carry
 
 
 # The JAX package's prepacked-operator impls.
@@ -556,7 +566,14 @@ def make_edge_adapter(
                     AX=bundle["cached_ax"], readout_op=_readout_fn(bundle),
                 )
 
-        return ModelAdapter(init, apply, bundles, device)
+        # The gather-free path is 1-layer, the restricted one 2-layer; the
+        # generic one takes either.
+        names = ("W_init1", "W_init2")[: model.n_layers]
+
+        def initial_carry(variables):
+            return tuple(variables["buffers"][k] for k in names)
+
+        return ModelAdapter(init, apply, bundles, device, initial_carry)
 
     if isinstance(model, (KWGCN, WDGCN)):
         with torch.no_grad():

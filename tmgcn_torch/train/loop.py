@@ -23,6 +23,17 @@ On a card every epoch's step is one CUDA graph, captured once and replayed
 one device call): a chunk of k plain epochs is k replays with no kernel
 issued from Python between them, and evaluation epochs replay the same
 graph. There is no switch: on the CPU the same step runs eagerly.
+
+Checkpoints (``train.checkpoint.RunCheckpointer``), as the JAX package
+takes them: classification and link prediction save after each evaluation
+epoch, regression after each chunk. A run given a checkpointer that holds
+one copies its params and optimizer state into the step's own tensors
+before the step is built or captured, and goes on at the epoch after it.
+The classification and link-prediction loops then start with an
+evaluation epoch, so a resumed run repeats the chunk after the saved
+epoch on a shifted schedule: its train losses (and classification's train
+F1) equal the uninterrupted run's, its evaluation rows do not. Regression
+saves at chunk ends, so its resumed run is the uninterrupted one.
 """
 
 from __future__ import annotations
@@ -80,6 +91,30 @@ class _Optimizer:
         self.nu = [torch.zeros_like(p) for p in params] if adam else []
         self.count = torch.zeros((), dtype=torch.float64, device=params[0].device) if adam else None
 
+    def state_dict(self) -> dict:
+        """The state's tensors (not copies): {"mu"} for SGD, {"mu", "nu",
+        "count"} for Adam, in the order of ``params``."""
+        if self.count is None:
+            return {"mu": self.mu}
+        return {"mu": self.mu, "nu": self.nu, "count": self.count}
+
+    @torch.no_grad()
+    def load_state_dict(self, state: dict) -> None:
+        """Copy a ``state_dict`` into this state's own tensors, in place: a
+        captured step keeps reading the same storage."""
+        own = self.state_dict()
+        if set(state) != set(own):
+            raise ValueError(f"optimizer state {sorted(state)} does not fit {sorted(own)}")
+        for key, dst in own.items():
+            src = state[key]
+            if key == "count":
+                dst.copy_(src)
+                continue
+            if len(src) != len(dst) or any(a.shape != b.shape for a, b in zip(src, dst)):
+                raise ValueError(f"optimizer state {key!r} does not fit the parameters")
+            for a, b in zip(dst, src):
+                a.copy_(b)
+
     @torch.no_grad()
     def step(self, grads: list[torch.Tensor]) -> None:
         cfg = self.cfg
@@ -120,6 +155,35 @@ def _tree_leaves(tree: dict) -> list[torch.Tensor]:
     return out
 
 
+@torch.no_grad()
+def _copy_tree_(dst: dict, src: dict) -> None:
+    """Copy every tensor of ``src`` into the same place of ``dst``, in
+    place; the trees must have the same keys and shapes."""
+    if set(dst) != set(src):
+        raise ValueError(f"checkpoint keys {sorted(src)} do not fit {sorted(dst)}")
+    for k, v in dst.items():
+        if isinstance(v, dict):
+            _copy_tree_(v, src[k])
+        elif v.shape != src[k].shape:
+            raise ValueError(f"checkpoint {k!r} has shape {tuple(src[k].shape)}, "
+                             f"not {tuple(v.shape)}")
+        else:
+            v.copy_(src[k])
+
+
+def _restore(checkpointer, params: dict, opt: _Optimizer) -> tuple[int, np.ndarray] | None:
+    """The newest checkpoint's params and optimizer state copied into
+    ``params`` and ``opt`` in place (never rebound: a captured step holds
+    their addresses); (epoch, results rows) or None if there is none."""
+    restored = checkpointer.restore()
+    if restored is None:
+        return None
+    step, state = restored
+    _copy_tree_(params, state["params"])
+    opt.load_state_dict(state["opt_state"])
+    return step, state["results"].numpy()
+
+
 def _clip_by_global_norm(grads: list[torch.Tensor], max_norm: float) -> list[torch.Tensor]:
     """optax.clip_by_global_norm."""
     norm = torch.sqrt(sum(torch.sum(g * g) for g in grads))
@@ -148,17 +212,19 @@ def _prepare(
     generator: torch.Generator | None,
     variables: dict | None,
     checkpointer,
-) -> tuple[dict, dict, _Optimizer]:
-    """TF32 off; (params, buffers, optimizer) on the adapter's device.
+) -> tuple[dict, dict, _Optimizer, tuple[int, np.ndarray] | None]:
+    """TF32 off; (params, buffers, optimizer, resumed) on the adapter's
+    device.
 
     ``variables`` (e.g. parameters carried over from the JAX package with
     ``configs.build.params_from_jax``) are copied to the adapter's device;
     otherwise they are drawn from ``generator`` (seed 0 if None). Params
     and buffers may nest (WD-GCN's ``lstm``): every leaf of ``params`` is
-    trained.
+    trained. With a ``checkpointer`` that holds a checkpoint, its params
+    and optimizer state are then copied over them (``_restore``; the draw
+    still happens, so a shared generator stays aligned for later runs) and
+    ``resumed`` is (its epoch, its results rows); otherwise None.
     """
-    if checkpointer is not None:
-        raise NotImplementedError("checkpoints are not ported yet (ROADMAP queue 1, item 13)")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     device = adapter.device
@@ -170,7 +236,9 @@ def _prepare(
         lambda v: v.detach().to(device).clone().requires_grad_(True), variables["params"]
     )
     buffers = _tree_map(lambda v: v.to(device), variables["buffers"])
-    return params, buffers, _optimizer(cfg, _tree_leaves(params))
+    opt = _optimizer(cfg, _tree_leaves(params))
+    resumed = _restore(checkpointer, params, opt) if checkpointer is not None else None
+    return params, buffers, opt, resumed
 
 
 class _Step:
@@ -229,12 +297,16 @@ class _EagerChunks:
     card the reference that the captured chunks are held to.
 
     ``chunks(n)`` takes n steps and returns the last one's (out, carry);
-    ``stats(n)`` is the stats rows of the last n steps, oldest first.
+    ``stats(n)`` is the stats rows of the last n steps, oldest first (the
+    steps this runner took: a resumed run's first step is its first).
+    ``resumed``: (epoch, results rows) of the checkpoint the step's state
+    was restored from, or None.
     """
 
     def __init__(self, step: _Step):
         self.step = step
         self.n_done = 0
+        self.resumed = None
 
     def __call__(self, n: int) -> tuple[torch.Tensor, object]:
         if n < 1:
@@ -376,7 +448,11 @@ def train_chunks(
         target = np.asarray(train, dtype=np.float32)
     else:
         raise ValueError(f"no training step for task {task!r}")
-    params, buffers, opt = _prepare(adapter, cfg, generator, variables, checkpointer)
+    params, buffers, opt, resumed = _prepare(adapter, cfg, generator, variables, checkpointer)
+    if resumed is not None and resumed[0] >= cfg.n_epochs:
+        # The JAX package fails here too, in a numpy broadcast.
+        raise ValueError(f"the newest checkpoint is of epoch {resumed[0]}, past this run's "
+                         f"{cfg.n_epochs} epochs")
     variables = {"params": params, "buffers": buffers}
     if task == "regression":
         loss = summed_per_slice_mse
@@ -392,7 +468,17 @@ def train_chunks(
     def eval_forward(window: str, carry):
         return adapter.apply(variables, adapter.bundles[window], carry)
 
-    return _chunks(step), eval_forward, variables
+    chunks = _chunks(step)
+    chunks.resumed = resumed
+    return chunks, eval_forward, variables
+
+
+def _save(checkpointer, epoch: int, chunks: _EagerChunks, results: np.ndarray) -> None:
+    """Epoch ``epoch``'s params, optimizer state, rows and buffers, read
+    after the chunk's steps (outside the captured step)."""
+    v = chunks.step.variables
+    checkpointer.save(epoch, v["params"], chunks.step.opt.state_dict(), results,
+                      buffers=v["buffers"])
 
 
 def run_edge_classification(
@@ -407,7 +493,10 @@ def run_edge_classification(
     """Train an edge classifier; returns ((epochs, 12) metrics, variables).
 
     ``variables``, ``generator``: as ``_prepare`` takes them; the returned
-    variables have the same tree.
+    variables have the same tree. ``checkpointer``: saved after each
+    evaluation epoch; a run that finds a checkpoint takes its rows up to
+    its epoch and the val/test stats of that row, and goes on at the next
+    epoch (see the module's docstring).
     """
     chunks, eval_forward, variables = train_chunks(
         adapter, splits["train"], class_weights, cfg, generator=generator,
@@ -418,6 +507,11 @@ def run_edge_classification(
     val_stats = (0.0,) * 4
     test_stats = (0.0,) * 4
     ep = 0
+    if chunks.resumed is not None:
+        step, rows = chunks.resumed
+        results[: step + 1] = rows[: step + 1]
+        val_stats, test_stats = tuple(rows[step, 4:8]), tuple(rows[step, 8:12])
+        ep = step + 1
     while ep < cfg.n_epochs:
         # Evaluation epoch: one step, then score val/test.
         _, carry = chunks(1)
@@ -439,6 +533,8 @@ def run_edge_classification(
                 f"ep {ep}: train f1 {f1_tr:.4f} loss {loss:.4f} | "
                 f"val f1 {val_stats[2]:.4f} | test f1 {test_stats[2]:.4f}"
             )
+        if checkpointer is not None:
+            _save(checkpointer, ep, chunks, results)
         ep += 1
 
         # Non-evaluation epochs: stats stay on the device until the chunk ends.
@@ -477,7 +573,8 @@ def run_link_prediction(
     The adapter's bundles hold each window's ``model_edges``; the training
     target drops the window's slice-0 edges to match. Same-block windows
     score their last ``n_eval_tail`` edges, disjoint windows every model
-    edge. ``variables``, ``generator``: as ``_prepare`` takes them.
+    edge. ``variables``, ``generator``: as ``_prepare`` takes them;
+    ``checkpointer``: as ``run_edge_classification`` takes it.
     """
     if eval_type not in ("MAP-MRR", "F1"):
         raise ValueError(f"unknown eval_type {eval_type!r}")
@@ -501,6 +598,12 @@ def run_link_prediction(
     val_stats = (0.0,) * n_stats
     test_stats = (0.0,) * n_stats
     ep = 0
+    if chunks.resumed is not None:
+        step, rows = chunks.resumed
+        results[: step + 1] = rows[: step + 1]
+        val_stats = tuple(rows[step, width - 2 * n_stats : width - n_stats])
+        test_stats = tuple(rows[step, width - n_stats :])
+        ep = step + 1
     while ep < cfg.n_epochs:
         out_train, carry = chunks(1)
         loss = float(chunks.stats(1)[0, 0])
@@ -537,6 +640,8 @@ def run_link_prediction(
                 f"ep {ep}: train {tr_stats} loss {loss:.4f} | "
                 f"val {val_stats[0]:.4f} | test {test_stats[0]:.4f}"
             )
+        if checkpointer is not None:
+            _save(checkpointer, ep, chunks, results)
         ep += 1
 
         # Non-evaluation epochs: losses stay on the device until the chunk ends.
@@ -568,7 +673,9 @@ def run_regression(
     window from the model's own initial state: the carry is ``()``) and
     ``metrics.l1_and_ratio``. Result: {"train_loss": (n_epochs,), "val_l1",
     "val_l1_ratio", "test_l1", "test_l1_ratio"}. ``variables``,
-    ``generator``: as ``_prepare`` takes them.
+    ``generator``: as ``_prepare`` takes them. ``checkpointer``: saved
+    after each chunk (at its last epoch); a run that finds a checkpoint
+    takes its losses and goes on at the next epoch.
     """
     chunks, eval_forward, variables = train_chunks(
         adapter, targets["train"], None, cfg, task="regression", generator=generator,
@@ -577,6 +684,10 @@ def run_regression(
     losses = np.zeros(cfg.n_epochs)
     chunk = max(1, cfg.eval_every)
     ep = 0
+    if chunks.resumed is not None:
+        step, rows = chunks.resumed
+        losses[: step + 1] = rows[: step + 1]
+        ep = step + 1
     while ep < cfg.n_epochs:
         k = min(chunk, cfg.n_epochs - ep)
         chunks(k)
@@ -584,6 +695,8 @@ def run_regression(
         if cfg.verbose:
             print(f"ep {ep + k - 1}: train mse {losses[ep + k - 1]:.5f}")
         ep += k
+        if checkpointer is not None:
+            _save(checkpointer, ep - 1, chunks, losses)
 
     result = {"train_loss": losses}
     for wname in ("val", "test"):
