@@ -173,7 +173,35 @@ non-zero, and nothing falls back to the CPU:
                   val/test L1 bitwise; chess_evolvegcn_lp 5 epochs saving
                   (5 K1), then predict threading its carry: MAP and MRR in
                   [0, 1]; each checkpoint save, load and in-place restore
-                  timed, beside the card's name and power limit;
+                  timed, beside the card's name and power limit; every
+                  counted run of the phase adds to the kernels line;
+               o. the streamed restricted layer 2 (l2_stream_chunks = 4:
+                  one K1 operator per group of time slices; a group with
+                  no endpoint entry launches nothing) and the generic
+                  1-layer TM-GCN: chess_tmgcn2_cls / pallas with one
+                  operator (407 K1, its evaluation logits kept), then
+                  streamed, 200 epochs (3 + 2 x 200 x g_train + 2 x
+                  (g_val + g_test) K1, g the groups with entries, reckoned
+                  on the host), warm rerun, vs eager, 5 epochs against the
+                  CPU, losses within rtol 1e-4 of the one operator's
+                  (their weight gradients round differently; the max
+                  relative difference printed) and val/test F1 within its
+                  logits' tie range; pallas_bf16 streamed, 5 epochs (bf16
+                  K1); the tmgcn2 scale family on
+                  the shared scale inputs as in d, once on the operator the
+                  restricted rule picks (printed with its ratio and the
+                  packing's entries against its slots; 2 K1 a step if K1)
+                  and once streamed (2 K1 a step in each group with
+                  entries), the streamed losses within rtol 1e-5 of the one
+                  operator's, each side's peak memory (steps, and a
+                  forward alone) and the gathered chunks a K1 call needs;
+                  K1 at both scale forward packings
+                  against its plain version and torch.sparse.mm, timed
+                  beside its bound; chess_tmgcn_cls / pallas with
+                  condensed_W=False and with use_Minv=True (203 K1 each: 3
+                  cached propagations, the readout plan's backward a
+                  step), 200 epochs, warm rerun, vs eager, 5 epochs against
+                  the CPU;
   8. capture — chess_tmgcn_cls (pallas), chess_tmgcn2_cls (pallas and the
                preset's jnp), chess_wdgcn_cls, chess_wdgcn_lp,
                chess_evolvegcn_cls, chess_evolvegcn2_cls,
@@ -1452,10 +1480,12 @@ def _f1_range(np, logits, target, rel: float = 1e-5) -> list:
             for a, b in ((0, 1), (1, 0))]
 
 
-def _check_eval_f1_in_tie_range(np, cfg, got, ref_res, ref_logits, name: str) -> None:
-    """Val and test F1 of the card's first epochs against the range the CPU
-    run's evaluation logits allow once their tied edges go either way (1e-3
-    beyond it); train F1 within 1e-3 of the CPU's."""
+def _check_eval_f1_in_tie_range(np, cfg, got, ref_res, ref_logits, name: str,
+                                ref: str = "the CPU plain path") -> None:
+    """Val and test F1 of the card's first epochs against the range the
+    reference run's (the CPU's) evaluation logits allow once their tied
+    edges go either way (1e-3 beyond it); train F1 within 1e-3 of the
+    reference's."""
     from tmgcn_torch.configs.build import build_data
     from tmgcn_torch.tasks.windows import split_edges_classification
 
@@ -1464,7 +1494,7 @@ def _check_eval_f1_in_tie_range(np, cfg, got, ref_res, ref_logits, name: str) ->
                                         n_classes=cfg.n_classes)
     same_nan = np.isnan(got[:, 2]) == np.isnan(ref_res[:, 2])
     close = np.nan_to_num(np.abs(got[:, 2] - ref_res[:, 2]), nan=0.0) <= 1e-3
-    check(bool(np.all(same_nan & close)), f"{name}: train F1 differs from the CPU plain path")
+    check(bool(np.all(same_nan & close)), f"{name}: train F1 differs from {ref}")
     n_tied = []
     for ep in range(got.shape[0]):
         i = ep // cfg.eval_every  # the evaluation whose rows epoch ep carries
@@ -1476,31 +1506,34 @@ def _check_eval_f1_in_tie_range(np, cfg, got, ref_res, ref_logits, name: str) ->
             v = got[ep, col]
             ok = (np.isnan(v) and len(finite) < 2) or (
                 bool(finite) and min(finite) - 1e-3 <= v <= max(finite) + 1e-3)
-            check(ok, f"{name}: {w} F1 {v} at epoch {ep} outside the CPU logits' tie range "
-                      f"[{lo}, {hi}]")
+            check(ok, f"{name}: {w} F1 {v} at epoch {ep} outside the tie range of {ref}'s "
+                      f"logits [{lo}, {hi}]")
             n_tied.append(int(np.sum(np.abs(logits[:, 0] - np.max(logits[:, 1:], axis=1))
                                      <= 1e-5 * max(1.0, float(np.abs(logits).max())))))
-    print(f"{name}: val/test F1 within the CPU logits' tie range (tied edges by evaluation "
-          f"window: {n_tied[:2]})")
+    print(f"{name}: val/test F1 within the tie range of {ref}'s logits (tied edges by "
+          f"evaluation window: {n_tied[:2]})")
 
 
 def _run_slice(torch, np, tk, cfg, e_train: int, expected: tuple, epochs: int = EPOCHS,
                warm: bool = True, rtol: float = 1e-4, vs_eager: bool = False,
-               f1_ties: bool = False) -> tuple:
+               f1_ties: bool = False, name: str | None = None, rows: list | None = None) -> tuple:
     """Epochs on cuda (counted), a warm rerun, with ``vs_eager`` the same
     run through the loop's eager chunks (rows bitwise equal, the same
     launches), 5 epochs against the CPU. ``f1_ties``: the model's logits
     can tie exactly in exact arithmetic (EvolveGCN's saturated GRU
     weights cancel), so val and test F1 are held to the range the CPU
-    run's evaluation logits allow (``_check_eval_f1_in_tie_range``)."""
+    run's evaluation logits allow (``_check_eval_f1_in_tie_range``).
+    ``rows``: the counted run's rows are appended to it."""
     from tmgcn_torch.configs.build import run_experiment
 
-    name = f"{cfg.name} ({cfg.spmm_impl})"
+    name = name or f"{cfg.name} ({cfg.spmm_impl})"
     out, launches = _counted(tk, lambda: run_experiment(
         cfg, data_dir=DATA_DIR, n_epochs=epochs, verbose=False, device=DEVICE))
     check(launches == expected,
           f"{name}: {COUNTED} launched {launches} times on the main path, expected {expected}")
     (res,) = out["results"].values()
+    if rows is not None:
+        rows.append(res)
     lp = cfg.task == "link_pred"
     width = 9 if lp else 12
     check(res.shape == (epochs, width), f"{name}: results shape {res.shape}")
@@ -1616,33 +1649,51 @@ def phase_wdgcn_chess(torch, np, tk, e_train: int) -> dict[str, tuple[int, int]]
 SCALE_FAMILIES = (("wdgcn", "WD-GCN"), ("evolvegcn", "EvolveGCN"))
 
 
-def phase_scale(torch, np, tk, fam: str, inputs, t_build: float, card: str) -> tuple[int, int]:
-    """One family of the scale run on the shared inputs: one K2 launch per
-    step (the readout plan's lane-major backward), traced warm steps, and
-    captured against eager steps (losses bitwise, peak memory, times)."""
+def _k2_per_step(adapter) -> tuple:
+    """The WD-GCN and EvolveGCN scale steps: K2 once (the readout plan's
+    lane-major backward), no K1."""
+    return (0, 0, 1, 0, 0, 0, 0)
+
+
+def phase_scale(torch, np, tk, fam: str, inputs, t_build: float, card: str,
+                label: str | None = None, l2_stream: int | None = None,
+                per_step=_k2_per_step, probe=None) -> tuple[tuple, dict]:
+    """One family of the scale run on the shared inputs: the launches of
+    its steps (``per_step(adapter)``: each kernel's launches in one step),
+    traced warm steps, and captured against eager steps (losses bitwise,
+    peak memory, times). ``l2_stream``: tmgcn2's streamed layer 2.
+    ``probe(adapter)`` runs before the adapter is freed. Returns the
+    launches and {"losses", "memory", "probe"}."""
     from tmgcn_torch.utils import profile_slice, scale_bench
 
-    label = dict(SCALE_FAMILIES)[fam]
+    label = label or dict(SCALE_FAMILIES)[fam]
     key = scale_bench._NAMES[fam]
+    torch.cuda.reset_peak_memory_stats()
     out, launches = _counted(
-        tk, lambda: scale_bench.run_family(fam, inputs, SCALE_N_TIMED, DEVICE))
+        tk, lambda: scale_bench.run_family(fam, inputs, SCALE_N_TIMED, DEVICE, l2_stream))
+    counted_peak = torch.cuda.max_memory_allocated()
     steps = out["steps"]
-    expected = (0, 0, steps, 0, 0, 0, 0)
+    expected = tuple(steps * n for n in per_step(out["adapter"]))
     check(launches == expected,
           f"{label} scale: {COUNTED} launched {launches} times in {steps} steps, "
           f"expected {expected}")
     losses = out["losses"]
     check(losses.shape == (steps,) and bool(np.all(np.isfinite(losses))),
           f"{label} scale: losses not finite: {losses}")
-    traced = _trace_scale_steps(torch, out["run"], label)
+    kernel = "K1" if fam == "tmgcn2" else "K2"
+    traced = _trace_scale_steps(torch, out["run"], label, kernel)
+    cut = ("for this family the cut also shrinks the per-step work: the restricted layer 2's "
+           "entries are a share of the adjacency's" if fam == "tmgcn2" else
+           "only the set-up depends on it")
     print(f"{label} scale ({SCALE['n_nodes']} nodes x {SCALE['n_slices']} slices, "
           f"{SCALE['n_edges']} labelled edges, nnz_per_slice {SCALE['nnz_per_slice']} — cut from "
-          f"2000000 to shorten the host build; only the set-up depends on it): host build "
+          f"2000000 to shorten the host build; {cut}): host build "
           f"{t_build:.3f} s, adapter build {out[f'{key}_build_s']:.3f} s, first {steps // 2} steps "
           f"(warm-up step and capture included) {out[f'{key}_first_run_s']:.3f} s, "
           f"{out[f'{key}_ms_per_epoch']:.6f} ms/epoch, "
           f"{out[f'{key}_edges_per_s']:.1f} labelled edges/s; launches {launches} in "
-          f"{steps} steps; losses {losses.tolist()} [{card}]")
+          f"{steps} steps; peak device memory of the build and the counted steps "
+          f"{counted_peak} bytes; losses {losses.tolist()} [{card}]")
     print(f"{label} scale traced warm, {traced['profiled_epochs']} captured steps (outside the "
           f"counts): device {traced['device_ms_per_profiled_epoch']:.6f} ms per step (the "
           f"profiler's kernel time; CUDA events around the steps "
@@ -1652,9 +1703,9 @@ def phase_scale(torch, np, tk, fam: str, inputs, t_build: float, card: str) -> t
           f"{traced['launch_calls_per_profiled_epoch']:.1f} kernel and "
           f"{traced['graph_launches_per_profiled_epoch']:.1f} graph launch calls per step; device "
           f"ms by kernel (top 12, over the {traced['profiled_epochs']} steps) "
-          f"{json.dumps(traced['device_ms_by_kernel'])}; device ms per step of K2 and of the "
-          f"operators that launch the readout backward's gather, copy and fill (every call of "
-          f"each) {json.dumps(traced['device_ms_per_step_named'])} [{card}]")
+          f"{json.dumps(traced['device_ms_by_kernel'])}; device ms per step of {kernel} and of "
+          f"the operators that launch the gathers, copies and fills (every call of each) "
+          f"{json.dumps(traced['device_ms_per_step_named'])} [{card}]")
 
     # Captured against eager on the same adapter: the same losses, each
     # side's peak device memory (eager first, so that no graph pool is
@@ -1683,15 +1734,18 @@ def phase_scale(torch, np, tk, fam: str, inputs, t_build: float, card: str) -> t
           f"included) {json.dumps(memory)} [{card}]")
     times = profile_slice.timed_chunks(runs, n)
     _print_times(f"{label} scale steps,", times, card, unit="step")
-    del runs, adapter
+    del runs
+    probed = probe(adapter) if probe is not None else None
+    del adapter
     gc.collect()
     torch.cuda.empty_cache()
-    return launches
+    return launches, {"losses": losses, "memory": memory, "probe": probed}
 
 
-def _trace_scale_steps(torch, run, label: str) -> dict:
+def _trace_scale_steps(torch, run, label: str, kernel: str = "K2") -> dict:
     """SCALE_TRACED_STEPS more warm scale steps, traced as profile_slice
-    traces a chess epoch."""
+    traces a chess epoch. ``kernel``: the name of the row walk's kernel in
+    the step (K1 and K2 share ``row_segment_matmul_kernel``)."""
     from tmgcn_torch.utils import profile_slice
 
     losses = []
@@ -1709,7 +1763,7 @@ def _trace_scale_steps(torch, run, label: str) -> dict:
     # child operators (index_select's gather kernel runs under one). The
     # operators also serve other layers: phase 4 times each alone.
     traced["device_ms_per_step_named"] = {
-        "K2 (row_segment_matmul_kernel)": per_step(
+        f"{kernel} (row_segment_matmul_kernel)": per_step(
             lambda e: e.device_type == cuda and "row_segment_matmul_kernel" in e.key,
             lambda e: e.self_device_time_total),
         **{op: per_step(lambda e, op=op: e.device_type != cuda and e.key == op,
@@ -2101,6 +2155,7 @@ def _resume_chess(torch, np, tk, root) -> dict[str, tuple]:
     counts = {}
     plain, launches = run(EPOCHS)
     check(launches == k1(EPOCHS, 2), f"{name}: launched {launches}, expected {k1(EPOCHS, 2)}")
+    counts[f"resume: {name} {EPOCHS} epochs, no checkpoints"] = launches
     # run_experiment's layout, <dir>/<preset>/<run tag>, which predict reads.
     tag = f"tr0_w{round(alpha * 100)}"
     dir_a, dir_b = root / "a" / cfg.name / tag, root / "b" / cfg.name / tag
@@ -2233,6 +2288,250 @@ def _predict_with_carry(torch, np, tk, root) -> dict[str, tuple]:
     return counts
 
 
+# The streamed restricted layer 2's groups of time slices (phase 7o).
+STREAM_CHUNKS = 4
+
+
+def _stream_groups(np, A, edges, n_chunks: int = STREAM_CHUNKS) -> int:
+    """The groups of the streamed layer 2 that launch K1, reckoned on the
+    host from the data apart from the adapter: those with an adjacency
+    entry in a labelled edge's endpoint row. A group without one gets an
+    operator with no entry, which the apply does not call."""
+    from tmgcn_torch.ops.spmm_rowsplit import flatten_stream
+
+    T, N = A.n_slices, A.n_nodes
+    e = np.asarray(edges, np.int64)
+    g_rows = flatten_stream(A)[0]
+    member = np.isin(g_rows, np.concatenate([e[0] * N + e[1], e[0] * N + e[2]]))
+    return len(np.unique(g_rows[member] // N // -(-T // n_chunks)))
+
+
+@contextlib.contextmanager
+def _streamed(n_chunks: int = STREAM_CHUNKS):
+    """``run_experiment`` with its edge adapters built with
+    ``l2_stream_chunks``: the restricted 2-layer TM-GCN's layer 2 streamed."""
+    from tmgcn_torch.configs import build
+    from tmgcn_torch.tasks.adapters import make_edge_adapter
+
+    with mock.patch.object(build, "make_edge_adapter",
+                           functools.partial(make_edge_adapter, l2_stream_chunks=n_chunks)):
+        yield
+
+
+def _streamed_chess(torch, np, tk) -> dict[str, tuple]:
+    """chess_tmgcn2_cls / pallas with its layer 2 streamed over
+    STREAM_CHUNKS groups, held against the one-operator run of the same
+    preset, then pallas_bf16 for 5 epochs."""
+    from tmgcn_torch.configs.build import run_experiment
+    from tmgcn_torch.configs.presets import get_preset
+    from tmgcn_torch.tasks.windows import split_edges_classification
+
+    base = get_preset("chess_tmgcn2_cls")
+    cfg = dataclasses.replace(base, spmm_impl="pallas")
+    data, split = _chess2()
+    splits = split_edges_classification(data.edge_index, data.edge_values, data.spec,
+                                        n_classes=cfg.n_classes)
+    groups = {w: _stream_groups(np, data.adj[w], splits[w].edges) for w in splits}
+
+    def k1(epochs: int, evals: int) -> int:
+        # 3 cached propagations; the forward and backward of each train
+        # group with entries a step; the forward of each val and test group
+        # with entries at each evaluation epoch.
+        return 3 + 2 * epochs * groups["train"] + evals * (groups["val"] + groups["test"])
+
+    T = data.adj["train"].n_slices
+    print(f"streamed chess_tmgcn2_cls: {STREAM_CHUNKS} groups of {-(-T // STREAM_CHUNKS)} "
+          f"slices; groups with entries by window {groups}; K1 reckoned {k1(EPOCHS, 2)} in "
+          f"{EPOCHS} epochs (2 evaluations), {k1(REF_EPOCHS, 1)} in {REF_EPOCHS}")
+    single_logits = []
+    with _recorded_evals(single_logits):
+        out, launches = _counted(tk, lambda: run_experiment(
+            cfg, data_dir=DATA_DIR, n_epochs=EPOCHS, verbose=False, device=DEVICE))
+    one = (3 + 2 * EPOCHS + 4, 0, 0, 0, 0, 0, 0)
+    check(launches == one, f"chess_tmgcn2_cls (pallas), one operator: launched {launches}")
+    counts = {"chess_tmgcn2_cls pallas, one operator (the streamed run's reference)": launches}
+    (single,) = out["results"].values()
+    name = f"chess_tmgcn2_cls (pallas, l2_stream_chunks={STREAM_CHUNKS})"
+    rows = []
+    with _streamed():
+        counts[name] = _run_slice(torch, np, tk, cfg, split.target.size,
+                                  (k1(EPOCHS, 2), 0, 0, 0, 0, 0, 0), vs_eager=True, name=name,
+                                  rows=rows)
+        (streamed,) = rows
+        # The groups' weight gradients are summed per group, so the two runs
+        # round differently; over 200 epochs the CPU's plain path drifts to
+        # 1.01e-5 (train loss, epoch 74) and back: the suite's loss tolerance
+        # between summation orders, rtol 1e-4, holds them.
+        losses = [3, 7, 11]
+        rel_by_epoch = np.nanmax(np.abs(streamed[:, losses] - single[:, losses])
+                                 / np.abs(single[:, losses]), axis=1)
+        rel = float(np.max(rel_by_epoch))
+        check(bool(np.allclose(streamed[:, losses], single[:, losses], rtol=1e-4, atol=0)),
+              f"{name}: losses differ from the one-operator run's by {rel} (rtol 1e-4)")
+        _check_eval_f1_in_tie_range(np, cfg, streamed, single, single_logits, name,
+                                    ref="the one-operator run")
+        same = np.array_equal(streamed, single, equal_nan=True)
+        print(f"{name} vs the one-operator run, {EPOCHS} epochs from the same parameters: losses "
+              f"within rtol 1e-4 (max relative difference {rel:.3e} at epoch "
+              f"{int(np.argmax(rel_by_epoch))}, {int(np.sum(rel_by_epoch > 1e-5))} epochs over "
+              f"1e-5; first 5 epochs {rel_by_epoch[:5].tolist()}); rows "
+              f"{'bitwise equal' if same else 'not bitwise equal'}")
+        bf = dataclasses.replace(base, spmm_impl="pallas_bf16")
+        name_bf = f"chess_tmgcn2_cls (pallas_bf16, l2_stream_chunks={STREAM_CHUNKS})"
+        counts[name_bf] = _run_slice(torch, np, tk, bf, split.target.size,
+                                     (0, k1(REF_EPOCHS, 1), 0, 0, 0, 0, 0), epochs=REF_EPOCHS,
+                                     warm=False, rtol=BF16_RTOL, name=name_bf)
+    return counts
+
+
+def _gathered_bytes(op) -> dict:
+    """The float32 (J, C, F1 = 6) chunks the operator gathers for its
+    forward and for its backward: the transient each K1 call needs."""
+    return {side: getattr(op, side).rows.numel() * 6 * 4 for side in ("packed", "packed_t")}
+
+
+def _forward_peak(torch, adapter) -> int:
+    """Peak device bytes, above what was allocated before it, of one
+    forward of the train window without autograd: the layer-2 operators'
+    gathered chunks live only then, one call at a time."""
+    variables = adapter.init(torch.Generator().manual_seed(0))
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    with torch.no_grad():
+        out, _ = adapter.apply(variables, adapter.bundles["train"], ())
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    del out
+    return peak
+
+
+def _k1_layer2_row(torch, tk, op, what: str) -> dict:
+    """K1 at a restricted layer 2's forward packing (F = 6, random input
+    rows) against its plain version and torch.sparse.mm, timed beside its
+    bound."""
+    dev = torch.device(DEVICE)
+    p = op.packed
+    Y = torch.randn(op.n_in, 6, device=dev, generator=torch.Generator(device=dev).manual_seed(7))
+    g = tk.gather_chunks(Y, p)
+    nnz = int(p.entry_order.numel())
+    f32 = torch.float32
+
+    def run():
+        return tk.windowed_segment_matmul(p, g, out_dtype=f32)
+
+    def plain():
+        return tk.windowed_segment_matmul_reference(p, g, out_dtype=f32)
+
+    err = _check_same(torch, run, plain, what)
+    S = _packing_csr(torch, p, op.n_in)
+    lib_err, tol = _max_err(run()[: op.n_out], torch.sparse.mm(S, Y)[: op.n_out])
+    check(lib_err <= tol, f"{what} vs torch.sparse.mm: {lib_err} > {tol}")
+    shape = (f"{op.n_out} endpoint rows x {op.n_in} used rows, F=6, nnz {nnz} in "
+             f"{p.n_chunks} chunks of {p.chunk} ({p.rows.numel()} slots)")
+    print(f"{what}: J={p.n_chunks} C={p.chunk} W={p.window} F=6 nnz={nnz} "
+          f"n_rows_out={p.n_rows_out} ({shape})")
+    row = _report(torch, what, run, plain, lambda: torch.sparse.mm(S, Y), _bound(p, 6, nnz, False))
+    return {**row, "max_abs_err": err, "shape": shape}
+
+
+def _tmgcn2_scale(torch, np, tk, inputs, t_build: float, card: str) -> tuple[dict, dict]:
+    """The tmgcn2 scale family on the shared inputs: the restricted layer 2
+    on the operator the rule picks, then streamed over STREAM_CHUNKS
+    groups, each as phase_scale runs a family; the streamed losses against
+    the one operator's; K1 timed at both forward packings."""
+    from tmgcn_torch.tasks.adapters import _build_restricted_layer2
+    from tmgcn_torch.utils.scale_bench import layer2_summary
+
+    A, _, _, edges, _, _ = inputs
+    groups = _stream_groups(np, A, edges)
+    print(f"TM-GCN 2 scale: streamed over {STREAM_CHUNKS} groups of "
+          f"{-(-A.n_slices // STREAM_CHUNKS)} slices, {groups} with entries (K1 reckoned "
+          f"{2 * groups} a step); one operator: 2 K1 a step if the rule picks K1, else none")
+
+    def single_per_step(adapter):
+        b = adapter.bundles["train"]
+        print(f"TM-GCN 2 scale, one operator: {layer2_summary(b)}")
+        return (2 if isinstance(b["l2op"], tk.FlatPallasOperator) else 0, 0, 0, 0, 0, 0, 0)
+
+    def streamed_per_step(adapter):
+        print(f"TM-GCN 2 scale, streamed: {layer2_summary(adapter.bundles['train'])}")
+        return (2 * groups, 0, 0, 0, 0, 0, 0)
+
+    def probe_single(adapter):
+        b = adapter.bundles["train"]
+        op = b["l2op"]
+        if not isinstance(op, tk.FlatPallasOperator):  # the rule chose block-dense
+            packed = {"cached": b["cached"]}
+            _build_restricted_layer2(packed, A, edges, False, "pallas")
+            op = packed["l2op"]
+        return (_k1_layer2_row(torch, tk, op, "K1 tmgcn2 scale, one restricted operator, forward"),
+                {**_gathered_bytes(op), "forward_peak": _forward_peak(torch, adapter)})
+
+    def probe_streamed(adapter):
+        ops = adapter.bundles["train"]["l2s_op"]
+        sizes = [_gathered_bytes(op) for op in ops]
+        return (_k1_layer2_row(torch, tk, ops[0], "K1 tmgcn2 scale, streamed group 0, forward"),
+                {**{side: max(s[side] for s in sizes) for side in ("packed", "packed_t")},
+                 "forward_peak": _forward_peak(torch, adapter)})
+
+    counts = {}
+    launches, single = phase_scale(torch, np, tk, "tmgcn2", inputs, t_build, card,
+                                   label="TM-GCN 2 (one operator)", per_step=single_per_step,
+                                   probe=probe_single)
+    counts["tmgcn2 scale 500k x 64, one operator"] = launches
+    label = f"TM-GCN 2 (streamed, {STREAM_CHUNKS} groups)"
+    launches, streamed = phase_scale(torch, np, tk, "tmgcn2", inputs, t_build, card, label=label,
+                                     l2_stream=STREAM_CHUNKS, per_step=streamed_per_step,
+                                     probe=probe_streamed)
+    counts[f"tmgcn2 scale 500k x 64, streamed over {STREAM_CHUNKS} groups"] = launches
+    a, b = single["losses"], streamed["losses"]
+    rel = float(np.max(np.abs(b - a) / np.abs(a)))
+    check(bool(np.allclose(b, a, rtol=1e-5, atol=0)),
+          f"{label}: losses {b.tolist()} differ from the one operator's {a.tolist()} by {rel}")
+    print(f"{label} vs one operator, from the same parameters: losses within rtol 1e-5 (max "
+          f"relative difference {rel:.3e}, {'bitwise equal' if np.array_equal(a, b) else 'not bitwise'}); "
+          f"gathered chunks a K1 call needs (float32, F = 6; streamed: the largest group) and "
+          f"the peak bytes of a forward without autograd above what was allocated before it "
+          f"{json.dumps({'one operator': single['probe'][1], 'streamed': streamed['probe'][1]})}; "
+          f"peak device memory of the eager and captured steps, one operator "
+          f"{json.dumps({k: v['peak_bytes'] - v['before_bytes'] for k, v in single['memory'].items()})}, "
+          f"streamed {json.dumps({k: v['peak_bytes'] - v['before_bytes'] for k, v in streamed['memory'].items()})} "
+          f"bytes above what was allocated before them [{card}]")
+    return counts, {"restricted_scale_forward": single["probe"][0],
+                    "streamed_group_scale_forward": streamed["probe"][0]}
+
+
+def _generic_tmgcn1(torch, np, tk) -> dict[str, tuple]:
+    """chess_tmgcn_cls / pallas with per-slice weights, then with M⁻¹: the
+    generic 1-layer adapter (the model's layer on the cached propagation,
+    the readout through the plan)."""
+    from tmgcn_torch.configs.presets import get_preset
+
+    base = dataclasses.replace(get_preset("chess_tmgcn_cls"), spmm_impl="pallas")
+    e_train = _chess2()[1].target.size  # the TM-GCN chess presets' train split
+    counts = {}
+    for flags in ({"condensed_W": False}, {"use_Minv": True}):
+        cfg = dataclasses.replace(base, **flags)
+        name = f"chess_tmgcn_cls (pallas, {', '.join(f'{k}={v}' for k, v in flags.items())})"
+        # 3 cached propagations, then the readout plan's backward once a step
+        # (the evaluations' forwards launch nothing).
+        counts[name] = _run_slice(torch, np, tk, cfg, e_train, (3 + EPOCHS, 0, 0, 0, 0, 0, 0),
+                                  vs_eager=True, name=name)
+    return counts
+
+
+def phase_streamed(torch, np, tk, inputs, t_build: float, card: str) -> tuple[dict, dict]:
+    """Phase 7o: the streamed restricted layer 2 on chess and at scale, and
+    the generic 1-layer TM-GCN. Returns the launches by path and K1's rows
+    at the two scale packings."""
+    counts = _streamed_chess(torch, np, tk)
+    scale_counts, k1_rows = _tmgcn2_scale(torch, np, tk, inputs, t_build, card)
+    counts.update(scale_counts)
+    counts.update(_generic_tmgcn1(torch, np, tk))
+    return counts, k1_rows
+
+
 # The paths timed captured against eager: (preset, spmm_impl or None for
 # the preset's own).
 TIMED_PATHS = (("chess_tmgcn_cls", "pallas"), ("chess_tmgcn2_cls", "pallas"),
@@ -2339,8 +2638,8 @@ def _phases(np, torch, tk, scale_bench) -> int:
         by_path.update(phase_wdgcn_chess(torch, np, tk, e_train))
     for fam, _ in SCALE_FAMILIES:
         with _timed(f"paths: {fam} scale"):
-            by_path[f"{fam} scale 500k x 64"] = phase_scale(torch, np, tk, fam, inputs,
-                                                             t_scale_build, card)
+            by_path[f"{fam} scale 500k x 64"], _ = phase_scale(torch, np, tk, fam, inputs,
+                                                                t_scale_build, card)
     for name, phase in (("TM-GCN 2 layers", phase_tmgcn2), ("link prediction", phase_lp)):
         with _timed(f"paths: {name}"):
             by_path.update(phase(torch, np, tk))
@@ -2351,6 +2650,11 @@ def _phases(np, torch, tk, scale_bench) -> int:
         by_path.update(phase_synthetic(torch, np, tk))
     with _timed("resume: checkpoints, resume and predict"):
         by_path.update(phase_resume(torch, np, tk, card))
+    with _timed("streamed layer 2 and the generic 1-layer TM-GCN"):
+        streamed_counts, k1_scale = phase_streamed(torch, np, tk, inputs, t_scale_build, card)
+        by_path.update(streamed_counts)
+        k1.update(k1_scale)
+        k1["max_abs_err"] = max(k1["max_abs_err"], *(r["max_abs_err"] for r in k1_scale.values()))
     by_path.update(fast_counts)
     with _timed("capture timing"):
         profiles = phase_capture_timing(torch, card)
@@ -2369,7 +2673,7 @@ def _phases(np, torch, tk, scale_bench) -> int:
             "plain_ms", "bound_ms", "bound_by", "library_ms")
     extra = ("shape", "launches_by_path", "train_window", "lp_readout_backward", "restricted_forward",
              "restricted_backward", "kwgcn2_forward", "kwgcn2_backward", "seir_wdgcn_reg",
-             "cached_propagation",
+             "cached_propagation", "restricted_scale_forward", "streamed_group_scale_forward",
              "k1_at_scale_packing_ms",
              "readout_backward_ops_ms", "spmm_bench_r1", "spmm_bench_chess2")
     print(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s")

@@ -564,6 +564,9 @@ def _cls_problem(family: str, impl: str):
         return _evolvegcn(family, T, hidden), None, adj, feats, edges, splits
     if family == "tmgcn":
         return TMGCN(hidden_feat=(6, 3), **kw), make_m_matrix(T, 3), adj, feats, edges, splits
+    if family == "tmgcn_generic":  # per-slice W and M⁻¹: the generic 1-layer path
+        return (TMGCN(hidden_feat=(6, 3), condensed_W=False, use_Minv=True, **kw),
+                make_m_matrix(T, 3), adj, feats, edges, splits)
     return (TMGCN2(hidden_feat=(6, 6, 3), nonlin2="selu", **kw), make_m_matrix(T, 3), adj,
             feats, edges, splits)
 
@@ -571,6 +574,7 @@ def _cls_problem(family: str, impl: str):
 # (task, family, spmm_impl)
 CAPTURE_CASES = {
     "cls_tmgcn1_pallas": ("cls", "tmgcn", "pallas"),
+    "cls_tmgcn1_generic_pallas": ("cls", "tmgcn_generic", "pallas"),
     "cls_tmgcn2_pallas": ("cls", "tmgcn2", "pallas"),
     "cls_wdgcn_jnp": ("cls", "wdgcn", "jnp"),
     "lp_wdgcn_jnp": ("lp", "wdgcn", "jnp"),
@@ -705,6 +709,70 @@ def test_restore_into_a_captured_step(cuda_device, optimizer, tmp_path):
     assert [t.data_ptr() for t in tensors] == ptrs
     chunks(2)
     assert torch.equal(chunks.stats(2).cpu(), after_save)
+
+
+@pytest.mark.parametrize("impl,counter", [("pallas", "launches"),
+                                          ("pallas_bf16", "launches_bf16")])
+def test_streamed_layer2_on_the_card(cuda_device, impl, counter, monkeypatch):
+    """The streamed restricted layer 2, 4 groups of 2 slices over 6 (the
+    fourth has no slice and launches nothing): logits and gradients against
+    the CPU and against the single operator on the card; one captured step
+    launches K1 forward and backward in each of the 3 other groups; 7 epochs
+    (eval_every 3) captured bitwise the eager loop's, K1 launched alike."""
+    from tmgcn_torch.tasks.adapters import make_edge_adapter
+    from tmgcn_torch.train import loop
+
+    model, M, adj, feats, edges, splits = _cls_problem("tmgcn2", impl)
+    variables = model.init(torch.Generator().manual_seed(0))
+    G = torch.from_numpy(np.random.default_rng(3).standard_normal((600, 3)).astype(np.float32))
+
+    def logits_and_grads(device, stream=4):
+        ad = make_edge_adapter(model, adj, feats, edges, M=M, device=device,
+                               l2_stream_chunks=stream)
+        p = {k: v.detach().clone().to(device).requires_grad_(True)
+             for k, v in variables["params"].items()}
+        out, _ = ad.apply({"params": p, "buffers": {}}, ad.bundles["train"], ())
+        (out * G.to(device)).sum().backward()
+        return [out.detach().cpu()] + [p[k].grad.cpu() for k in sorted(p)]
+
+    on_card = logits_and_grads(cuda_device)
+    rel = 2e-2 if impl == "pallas_bf16" else 1e-5
+    for ref in (logits_and_grads("cpu"), logits_and_grads(cuda_device, stream=None)):
+        for a, b in zip(on_card, ref):
+            torch.testing.assert_close(a, b, rtol=0, atol=rel * max(1.0, b.abs().max().item()))
+
+    ad = make_edge_adapter(model, adj, feats, edges, M=M, device=cuda_device, l2_stream_chunks=4)
+    assert [op.packed.entry_order.shape[0] > 0 for op in ad.bundles["train"]["l2s_op"]] == \
+        [True, True, True, False]
+    chunks, _, _ = loop.train_chunks(ad, splits["train"], np.ones(3) / 3, loop.TrainConfig(),
+                                     capacity=8)
+    assert type(chunks) is loop._CapturedChunks
+    before = getattr(tk.windowed_segment_matmul, counter)
+    chunks(1)
+    assert getattr(tk.windowed_segment_matmul, counter) - before == 6
+    chunks(3)
+    assert getattr(tk.windowed_segment_matmul, counter) - before == 24
+
+    cw = np.array([0.2, 0.5, 0.3])
+
+    def run():
+        ad = make_edge_adapter(model, adj, feats, edges, M=M, device=cuda_device,
+                               l2_stream_chunks=4)
+        before = _launches()
+        res, _ = loop.run_edge_classification(ad, splits, cw,
+                                              loop.TrainConfig(n_epochs=7, eval_every=3),
+                                              variables=variables)
+        return res, [a - b for a, b in zip(_launches(), before)]
+
+    captured, n_captured = run()
+    monkeypatch.setattr(loop, "_chunks", loop._EagerChunks)
+    eager, n_eager = run()
+    np.testing.assert_array_equal(captured, eager)
+    assert n_captured == n_eager
+    # 2 a step and 1 a forward of val or test at 3 evaluations, in each of
+    # the 3 groups with entries (the cached propagations ran in the build).
+    assert n_captured[COUNTERS.index((tk.windowed_segment_matmul, counter))] == 3 * (
+        2 * 7 + 2 * 3)
 
 
 def test_a_host_sync_in_the_step_raises(cuda_device):

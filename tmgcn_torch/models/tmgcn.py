@@ -99,12 +99,16 @@ class TMGCN:
         edges: torch.Tensor,
         M: torch.Tensor,
         AtXt: torch.Tensor | None = None,
+        readout_op=None,
     ) -> torch.Tensor:
-        """(E, C) edge logits."""
+        """(E, C) edge logits. ``readout_op(Y, U)``, where given, replaces the
+        concat readout over ``edges`` (the adapters' ReadoutPlan)."""
         Y = self.embed(variables, Ct, X, M, AtXt)
         U = variables["params"]["U"]
         if self.readout == "bilinear":
             return edge_readout_bilinear(Y, edges, U)
+        if readout_op is not None:
+            return readout_op(Y, U)
         return edge_readout(Y, edges, U)
 
 

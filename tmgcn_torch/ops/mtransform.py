@@ -35,8 +35,10 @@ def m_transform_inverse(
     """Apply M^{-1} along the time axis.
 
     Banded (lower-triangular) M uses a triangular solve; dense families
-    (DCT) need a general solve. Auto-detects from M unless the flag is
-    given.
+    (DCT) need a general solve. Unless the flag is given, it is read from
+    a CPU M; on a device M it would take a host sync, so the general solve
+    is taken there (LU, its singularity check left out: no host sync, so a
+    captured step can hold it), as the JAX package takes it for a traced M.
     """
     T = X.shape[0]
     flat = X.reshape(T, -1)
@@ -44,11 +46,13 @@ def m_transform_inverse(
     lower = assume_lower_triangular
     if lower is None:
         upper = torch.triu(Mx, diagonal=1)
-        lower = bool(torch.allclose(upper, torch.zeros_like(upper)))
+        lower = Mx.device.type == "cpu" and bool(torch.allclose(upper, torch.zeros_like(upper)))
     if lower:
         out = torch.linalg.solve_triangular(Mx, flat, upper=False)
-    else:
+    elif Mx.device.type == "cpu":
         out = torch.linalg.solve(Mx, flat)
+    else:
+        out = torch.linalg.solve_ex(Mx, flat, check_errors=False).result
     return out.reshape(X.shape)
 
 

@@ -21,7 +21,11 @@ rows the readout reads: a rectangular (endpoint rows x used input rows)
 sparse operator, built once per window from the model's impl (K1 for
 ``"pallas"``, K1's bf16 tier for ``"pallas_bf16"``, ``"blockdense"``,
 ``"rowsplit"``; ``"auto"`` otherwise), forward and backward every epoch.
-Other 2-layer TM-GCNs run the model's own layers with the readout plan.
+With ``l2_stream_chunks`` that layer 2 is streamed instead: one K1
+operator per group of time slices, run one after the other, so that the
+device holds one group's gathered chunks at a time. Other 2-layer TM-GCNs,
+and 1-layer TM-GCNs with per-slice weights or M⁻¹, run the model's own
+layers on the cached propagation with the readout plan.
 
 WD-GCN caches its propagation AX once per window (transposed to
 (T, F0, N)) and runs the LSTM and the edge readout every epoch; the
@@ -196,23 +200,140 @@ def _build_restricted_layer2(
     return uniq, used
 
 
-def _restricted_logits(model: TMGCN2, variables: dict, bundle: dict) -> torch.Tensor:
-    """Edge logits of the readout-restricted 2-layer TM-GCN."""
-    p = variables["params"]
+def _build_streamed_layer2(
+    bundle: dict,
+    A: TemporalCOO,
+    edges_np: np.ndarray,
+    drop_last_slice: bool,
+    n_chunks: int,
+    operator: str = "auto",
+    cached_key: str = "cached",
+) -> None:
+    """The restricted layer 2 split into groups of time slices (streamed).
+
+    The single restricted operator gathers its whole chunk stream every
+    forward and backward; this build splits the T slices into ``n_chunks``
+    groups of ``ceil(T / n_chunks)`` and packs one rectangular K1 operator
+    per group, run one after the other, so that the device holds one
+    group's gathered chunks at a time. All groups share the output rows
+    ``U_pad`` (the most endpoint rows of a group) and the input rows
+    ``S_max`` (the most used rows, at least 1). As in the JAX package the
+    operators are K1 whatever ``operator`` names, in its bf16 tier for an
+    impl ending in ``bf16``.
+
+    Bundle keys: ``l2s_op`` (the groups' FlatPallasOperators, a list),
+    ``l2s_Hin`` (n_chunks, S_max, F0) — the cached propagation at each
+    group's used rows, row 0 in the unused slots — and ``l2s_src`` /
+    ``l2s_trg`` (E,): indices into the (n_chunks · U_pad, F1) stacked output.
+
+    Each operator keeps its own chunk count: the JAX package pads the
+    packings to one count only so that they stack into a ``lax.scan``
+    operand. A group with no labelled edge (no slice at all, or entries
+    but no endpoint) gets an operator with no entries, and its output rows
+    are zeros.
+    """
+    device = bundle[cached_key].device
+    if drop_last_slice:
+        A = A.slice_window(0, A.n_slices - 1)
+    T, N = A.n_slices, A.n_nodes
+    t_per = -(-T // n_chunks)
+    e = np.asarray(edges_np, np.int64)
+    src_keys = e[0] * N + e[1]
+    trg_keys = e[0] * N + e[2]
+    edge_chunk = e[0] // t_per
+    g_rows, g_cols, g_vals = spmm_rowsplit.flatten_stream(A)
+    row_chunk = (g_rows // N) // t_per
+
+    chunks = []
+    for c in range(n_chunks):
+        esel = edge_chunk == c
+        uniq_c = np.unique(np.concatenate([src_keys[esel], trg_keys[esel]]))
+        asel = row_chunk == c
+        rows_a, cols_a, vals_a = g_rows[asel], g_cols[asel], g_vals[asel]
+        if len(uniq_c):
+            idx = np.minimum(np.searchsorted(uniq_c, rows_a), len(uniq_c) - 1)
+            member = uniq_c[idx] == rows_a
+        else:
+            idx, member = np.zeros(len(rows_a), np.int64), np.zeros(len(rows_a), bool)
+        used_c = np.unique(cols_a[member])
+        chunks.append((uniq_c, used_c, idx[member], np.searchsorted(used_c, cols_a[member]),
+                       vals_a[member]))
+
+    U_pad = max(len(c[0]) for c in chunks)
+    S_max = max(max(len(c[1]) for c in chunks), 1)
+    gather_dtype = "bfloat16" if operator.endswith("bf16") else None
+    bundle["l2s_op"] = [
+        spmm_cuda.make_flat_operator(
+            r, cc, v, n_in=S_max, n_out=U_pad, chunk=512, window=256, sort_cols=True,
+            gather_dtype=gather_dtype,
+        ).to(device)
+        for (_, _, r, cc, v) in chunks
+    ]
+    hin = np.zeros((n_chunks, S_max), np.int64)
+    for c, (_, used_c, *_rest) in enumerate(chunks):
+        hin[c, : len(used_c)] = used_c
+    F0 = bundle[cached_key].shape[-1]
+    bundle["l2s_Hin"] = bundle[cached_key].reshape(T * N, F0)[
+        torch.as_tensor(hin.reshape(-1), device=device)
+    ].reshape(n_chunks, S_max, F0)
+
+    def to_stream(keys):
+        out = np.zeros(len(keys), np.int64)
+        for c, (uniq_c, *_rest) in enumerate(chunks):
+            sel = edge_chunk == c
+            out[sel] = c * U_pad + np.searchsorted(uniq_c, keys[sel])
+        return out
+
+    bundle["l2s_src"] = torch.as_tensor(to_stream(src_keys), device=device)
+    bundle["l2s_trg"] = torch.as_tensor(to_stream(trg_keys), device=device)
+
+
+def _layer2_rows(model: TMGCN2, W1: torch.Tensor, H: torch.Tensor, op) -> torch.Tensor:
+    """op(nonlin2(H @ W1)) at the model's casts: the restricted layer 2's
+    endpoint rows from the cached propagation's used rows ``H``."""
     dtype = model.dtype
-    H = bundle["l2_Hin"].to(dtype)  # (n_used, F0) compact
-    Y = nonlinearity(model.nonlin2)(torch.matmul(H, p["W1"].to(H.dtype)))
+    H = H.to(dtype)
+    Y = nonlinearity(model.nonlin2)(torch.matmul(H, W1.to(H.dtype)))
     if model.interlayer_dtype is not None:
         Y = Y.to(model.interlayer_dtype)
-    Zc = bundle["l2op"](Y).to(dtype)
-    # Fold W2 @ U before the per-edge gathers: the tiny (F1, C) products
-    # run on n_uniq rows instead of E, and the gathered width drops to C.
+    return op(Y).to(dtype)
+
+
+def _folded_readout(p: dict, dtype: torch.dtype, Zc: torch.Tensor, src, trg) -> torch.Tensor:
+    """Edge logits from layer 2's endpoint rows ``Zc`` (before W2).
+
+    W2 @ U is folded before the per-edge gathers: the tiny (F1, C) products
+    run on the endpoint rows instead of E, and the gathered width drops to C.
+    """
     W2 = p["W2"].to(dtype)
     F2 = W2.shape[-1]
     U = p["U"].to(dtype)
     P1 = torch.matmul(Zc, W2 @ U[:F2])
     P2 = torch.matmul(Zc, W2 @ U[F2:])
-    return P1[bundle["l2_src"]] + P2[bundle["l2_trg"]]
+    return P1[src] + P2[trg]
+
+
+def _restricted_logits(model: TMGCN2, variables: dict, bundle: dict) -> torch.Tensor:
+    """Edge logits of the readout-restricted 2-layer TM-GCN."""
+    p = variables["params"]
+    Zc = _layer2_rows(model, p["W1"], bundle["l2_Hin"], bundle["l2op"])
+    return _folded_readout(p, model.dtype, Zc, bundle["l2_src"], bundle["l2_trg"])
+
+
+def _streamed_logits(model: TMGCN2, variables: dict, bundle: dict) -> torch.Tensor:
+    """Edge logits of the streamed restricted 2-layer TM-GCN: each group's
+    rows in turn, stacked to (n_chunks · U_pad, F1). A group whose
+    operator has no entry launches nothing: its rows are zeros, as its
+    operator would write them. The groups' rows are freed once stacked
+    (the list is a temporary), before the readout."""
+    p = variables["params"]
+    F1 = p["W1"].shape[-1]
+    Zc = torch.cat([
+        _layer2_rows(model, p["W1"], H_c, op_c) if op_c.packed.entry_order.shape[0]
+        else H_c.new_zeros((op_c.n_out, F1), dtype=model.dtype)
+        for op_c, H_c in zip(bundle["l2s_op"], bundle["l2s_Hin"].unbind(0))
+    ])
+    return _folded_readout(p, model.dtype, Zc, bundle["l2s_src"], bundle["l2s_trg"])
 
 
 def _readout_fn(bundle: dict):
@@ -497,15 +618,18 @@ def make_edge_adapter(
     """Adapter for edge-output models on prepared windows.
 
     Args:
-        model: a TMGCN (1-layer condensed), TMGCN2, KWGCN, EvolveGCN or
-            WDGCN.
+        model: a TMGCN, TMGCN2, KWGCN, EvolveGCN or WDGCN.
         adj: per-window adjacency (Ct for TM-GCN, C for the baselines).
         feats: per-window (T, N, F) features.
         edges: per-window (3, E) model-input edges.
         M: mixing matrix (TM-GCN only).
         drop_last_slice: link-prediction convention — the model consumes
             slices [0, T-1) and M[:-1, :-1].
-        l2_stream_chunks: TMGCN2 only; not ported yet.
+        l2_stream_chunks: the restricted TMGCN2 only (ignored by every
+            other model): stream its layer 2 over this many groups of time
+            slices, one K1 operator each (``_build_streamed_layer2``), so
+            that the device holds one group's gathered chunks at a time.
+            None: one operator.
         device: where the bundles live and the model runs (no default:
             the entry points resolve it, cuda unless asked otherwise).
 
@@ -514,24 +638,17 @@ def make_edge_adapter(
     frozen W_init buffers).
     """
     tmgcn1 = isinstance(model, TMGCN) and model.condensed_W and not model.use_Minv
-    tmgcn2 = isinstance(model, TMGCN2)
     restricted2 = (
-        tmgcn2 and model.condensed_W and not model.use_Minv and not model.apply_M_twice
+        isinstance(model, TMGCN2) and model.condensed_W and not model.use_Minv
+        and not model.apply_M_twice
     )
     kwgcn1 = isinstance(model, KWGCN) and model.n_layers == 1
     evolve = (
         _evolvegcn_path(model, adj, edges, drop_last_slice)
         if isinstance(model, EvolveGCN) else None
     )
-    if isinstance(model, TMGCN) and not tmgcn1:
-        raise NotImplementedError(
-            "the generic 1-layer TM-GCN adapter (condensed_W=False or use_Minv) is not "
-            "ported yet (ROADMAP queue 1, item 4)"
-        )
     if not isinstance(model, (TMGCN, TMGCN2, KWGCN, EvolveGCN, WDGCN)):
         raise TypeError(f"unsupported edge model: {type(model).__name__}")
-    if l2_stream_chunks:
-        raise NotImplementedError("streamed layer 2 is not ported yet (ROADMAP queue 1, item 12)")
     # EvolveGCN names no impl: the JAX package's propagation is plain spmm.
     impl = getattr(model, "spmm_impl", "jnp")
     # The restricted path runs the square operator once (the cached
@@ -630,20 +747,27 @@ def make_edge_adapter(
             b["cached"] = model.propagate(b["adj"], b["X"], b["M"])
 
     if restricted2:
+        operator = impl if impl in OPERATOR_IMPLS else "auto"
         with torch.no_grad():
             # Windows that share a bundle share adj and edges: build once.
             for w, b in _unique_windows(bundles):
-                _build_restricted_layer2(
-                    b, adj[w], as_numpy(edges[w]), drop_last_slice,
-                    operator=impl if impl in OPERATOR_IMPLS else "auto",
-                )
+                if l2_stream_chunks:
+                    _build_streamed_layer2(b, adj[w], as_numpy(edges[w]), drop_last_slice,
+                                           n_chunks=l2_stream_chunks, operator=operator)
+                else:
+                    _build_restricted_layer2(b, adj[w], as_numpy(edges[w]), drop_last_slice,
+                                             operator=operator)
+        logits = _streamed_logits if l2_stream_chunks else _restricted_logits
 
         def apply(variables, bundle, carry):
-            return _restricted_logits(model, variables, bundle), carry
+            return logits(model, variables, bundle), carry
 
         return ModelAdapter(init, apply, bundles, device)
 
-    if tmgcn2:
+    if not tmgcn1:
+        # The model's own layers on the cached propagation, the readout
+        # through the bundle's plan: TMGCN2 off the restricted path, and
+        # TMGCN with per-slice weights or M⁻¹.
 
         def apply(variables, bundle, carry):
             out = model.apply(

@@ -10,17 +10,21 @@ device call:
 
     python -m tmgcn_torch.utils.scale_bench [--nodes 500000] [--slices 64]
         [--nnz-per-slice 2000000] [--edges 1000000] [--families tmgcn1,tmgcn2]
-        [--out FILE] [--device cuda]
+        [--l2-stream N] [--out FILE] [--device cuda]
 
 Prints ms/epoch and labelled edges/s for each family, then one JSON line.
-Families ported: ``tmgcn1`` (1-layer TM-GCN, hidden (6, 2)), ``wdgcn``
-(WD-GCN, hidden (6, 2)) and ``evolvegcn`` (EvolveGCN-H, hidden (6, 2)). At
-500k nodes x 64 slices the readout plan's T·N = 32M rows pass
-``LANE_MAJOR_BYTES``, so every WD-GCN training step runs the readout
-backward through K2; so does every EvolveGCN step, whose (T, E) slice
-one-hot (244 MiB) is over the gather-free path's budget, so it runs the
-generic path with the plan. ``tmgcn2`` and ``--l2-stream`` raise
-NotImplementedError naming their ROADMAP item.
+Families: ``tmgcn1`` (1-layer TM-GCN, hidden (6, 2)), ``tmgcn2`` (2-layer
+TM-GCN, hidden (6, 6, 2), selu: the readout-restricted layer 2 on the
+operator the ``auto`` rule picks, or with ``--l2-stream N`` streamed over N
+groups of time slices, one K1 operator each; the flag reaches no other
+family), ``wdgcn`` (WD-GCN, hidden (6, 2)) and ``evolvegcn`` (EvolveGCN-H,
+hidden (6, 2)). At 500k nodes x 64 slices the readout plan's T·N = 32M
+rows pass ``LANE_MAJOR_BYTES``, so every WD-GCN training step runs the
+readout backward through K2; so does every EvolveGCN step, whose (T, E)
+slice one-hot (244 MiB) is over the gather-free path's budget, so it runs
+the generic path with the plan. For ``tmgcn2`` a stderr line names the
+restricted operator and, for K1, its packing's real entries against its
+slots.
 
 The flags and their defaults are the tool's own, except ``--out``: the
 tool writes results/scale_bench.json, where the JAX package keeps its
@@ -44,10 +48,6 @@ from tmgcn_torch.core.sparse import TemporalCOO
 from tmgcn_torch.ops.degree import degree_features_np
 from tmgcn_torch.tasks.windows import EdgeSplit
 
-# Families of tools/bench_scale.py not ported yet, and their ROADMAP items.
-_NOT_PORTED = {
-    "tmgcn2": "queue 1, item 12: the family's 1M-node size runs the streamed layer 2",
-}
 _NAMES = {"tmgcn1": "one_layer", "tmgcn2": "two_layer", "evolvegcn": "evolvegcn",
           "wdgcn": "wdgcn"}
 
@@ -87,10 +87,6 @@ def build_inputs(n_nodes, n_slices, nnz_per_slice, n_edges, band, seed=1):
 
 
 def _check_family(fam: str) -> None:
-    if fam in _NOT_PORTED:
-        raise NotImplementedError(
-            f"scale family {fam!r} is not ported yet (ROADMAP {_NOT_PORTED[fam]})"
-        )
     if fam not in _NAMES:
         raise ValueError(f"unknown family {fam!r}")
 
@@ -98,12 +94,14 @@ def _check_family(fam: str) -> None:
 def build_model(fam: str, n_slices: int, f_in: int, M: np.ndarray):
     """(model, M for the adapter) of one family."""
     from tmgcn_torch.models.evolvegcn import EvolveGCN
-    from tmgcn_torch.models.tmgcn import TMGCN
+    from tmgcn_torch.models.tmgcn import TMGCN, TMGCN2
     from tmgcn_torch.models.wdgcn import WDGCN
 
     _check_family(fam)
     if fam == "tmgcn1":
         return TMGCN(n_slices=n_slices, in_feat=f_in, hidden_feat=(6, 2)), M
+    if fam == "tmgcn2":
+        return TMGCN2(n_slices=n_slices, in_feat=f_in, hidden_feat=(6, 6, 2), nonlin2="selu"), M
     if fam == "wdgcn":
         return WDGCN(n_slices=n_slices, in_feat=f_in, hidden_feat=(6, 2)), None
     if fam == "evolvegcn":
@@ -167,9 +165,31 @@ def labelled_edges(inputs) -> EdgeSplit:
     return EdgeSplit(edges, tgt, np.ones(tgt.shape, bool))
 
 
-def run_family(fam: str, inputs, n_timed: int, device: str | torch.device) -> dict:
+def layer2_summary(bundle: dict) -> str:
+    """The restricted layer 2 a tmgcn2 bundle holds: the operator (with
+    what the ``auto`` rule saw, where it chose) and, for K1 packings, the
+    real entries against the slots of the forward and backward packings."""
+    from tmgcn_torch.kernels.spmm_cuda import FlatPallasOperator
+
+    ops = bundle.get("l2s_op") or [bundle["l2op"]]
+    what = (f"streamed over {len(ops)} groups" if "l2s_op" in bundle
+            else f"one operator {type(ops[0]).__name__}")
+    if "l2op_choice" in bundle:
+        what += f", l2op_choice {bundle['l2op_choice']}"
+    if all(isinstance(op, FlatPallasOperator) for op in ops):
+        for side in ("packed", "packed_t"):
+            real = sum(int(getattr(op, side).entry_order.shape[0]) for op in ops)
+            slots = sum(getattr(op, side).rows.numel() for op in ops)
+            what += f"; {side}: {real} entries in {slots} slots ({slots / max(real, 1):.2f}x)"
+    return what
+
+
+def run_family(fam: str, inputs, n_timed: int, device: str | torch.device,
+               l2_stream: int | None = None) -> dict:
     """Build one family's adapter on the shared inputs and time its epochs.
 
+    ``l2_stream``: tmgcn2's streamed layer 2 over this many groups of time
+    slices (ignored by the other families, as the tool ignores it).
     Returns the tool's keys for the family (build seconds, ms/epoch,
     edges/s), ``steps`` / ``losses`` of every training step run,
     ``run(n)``: n more steps on the same adapter and parameters (a warm
@@ -187,6 +207,7 @@ def run_family(fam: str, inputs, n_timed: int, device: str | torch.device) -> di
     adapter = make_edge_adapter(
         model, {w: A for w in WINDOWS}, {w: X for w in WINDOWS},
         {w: edges for w in WINDOWS}, M=Mw, device=device,
+        l2_stream_chunks=l2_stream if fam == "tmgcn2" else None,
     )
     _sync(device)
     build_s = time.perf_counter() - t0
@@ -214,18 +235,14 @@ def main(argv=None) -> int:
     ap.add_argument("--band", type=int, default=20)
     ap.add_argument("--n-timed", type=int, default=20)
     ap.add_argument("--l2-stream", type=int, default=None,
-                    help="tmgcn2's streamed layer 2 (not ported yet)")
+                    help="stream the tmgcn2 restricted layer 2 over this many groups of "
+                         "time slices")
     ap.add_argument("--families", default="tmgcn1,tmgcn2",
                     help="comma list of tmgcn1,tmgcn2,evolvegcn,wdgcn")
     ap.add_argument("--out", default=None, help="also write the JSON result here")
     ap.add_argument("--device", default="cuda",
                     help="torch device (default cuda; cpu runs the plain path)")
     args = ap.parse_args(argv)
-    if args.l2_stream is not None:
-        raise NotImplementedError(
-            "--l2-stream (the streamed restricted layer 2) is not ported yet "
-            "(ROADMAP queue 1, item 12)"
-        )
     families = [f.strip() for f in args.families.split(",") if f.strip()]
     for fam in families:  # before the host build, which takes minutes at full size
         _check_family(fam)
@@ -235,7 +252,7 @@ def main(argv=None) -> int:
     device = resolve_device(args.device)
     res = {
         "nodes": args.nodes, "slices": args.slices,
-        "nnz_per_slice": args.nnz_per_slice, "edges": args.edges,
+        "nnz_per_slice": args.nnz_per_slice, "edges": args.edges, "l2_stream": args.l2_stream,
         "device": str(device),
     }
     if device.type == "cuda":
@@ -250,12 +267,21 @@ def main(argv=None) -> int:
     print(f"# built: {A.n_slices}x{A.n_nodes}, {int(np.asarray(A.nnz).sum())} nnz, "
           f"host {res['build_host_s']:.1f}s", file=sys.stderr)
     for fam in families:
-        out = run_family(fam, inputs, args.n_timed, device)
+        if device.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(device)
+        out = run_family(fam, inputs, args.n_timed, device, args.l2_stream)
         key = _NAMES[fam]
+        if fam == "tmgcn2":
+            print(f"# tmgcn2 layer 2: {layer2_summary(out['adapter'].bundles['train'])}",
+                  file=sys.stderr)
         ms = out[f"{key}_ms_per_epoch"]
         res.update({k: v for k, v in out.items() if k.startswith(key)})
+        if device.type == "cuda":
+            # The family's build and steps, its adapter included.
+            res[f"{key}_peak_device_bytes"] = torch.cuda.max_memory_allocated(device)
         print(f"# {fam} {ms:.3f} ms/epoch ({out[f'{key}_edges_per_s'] / 1e6:.3f} M edges/s), "
               f"first run {out[f'{key}_first_run_s']:.1f}s", file=sys.stderr)
+        del out
         if device.type == "cuda":
             torch.cuda.empty_cache()
     if args.out:
