@@ -202,6 +202,25 @@ non-zero, and nothing falls back to the CPU:
                   cached propagations, the readout plan's backward a
                   step), 200 epochs, warm rerun, vs eager, 5 epochs against
                   the CPU;
+               p. the (graph x time) mesh (tmgcn_torch/parallel) on NCCL at
+                  1 x 1, the one mesh one card allows: ``run_experiment(
+                  mesh_shape=(1, 1))`` of chess_tmgcn_cls (pallas; the
+                  sharded path ignores the impl), chess_tmgcn2_cls with
+                  layer 2 "gather" and "blockdense", chess_tmgcn_lp and
+                  chess_gcn_cls, 200 epochs each: no kernel of ours (0
+                  launches: the shard-local SpMM is the segment sum, layer
+                  2's block-dense operator cuBLAS), captured vs eager on the
+                  same adapter (rows bitwise), against the unsharded run on
+                  the card (train loss rtol 1e-4; F1 within 1e-3 or the
+                  unsharded logits' tie range; MAP/MRR rtol 1e-3); ``torchrun
+                  --standalone --nproc-per-node 1 -m tmgcn_torch.cli run
+                  chess_tmgcn_cls --mesh graph=1,time=1 --epochs 20`` beside
+                  them: exit 0 and the in-process run's rows, bitwise; then
+                  chess_tmgcn_cls's set-up seconds, the collectives of one
+                  evaluation and one plain step, plain epochs sharded and
+                  unsharded, captured and eager, timed in turns, and a traced
+                  captured chunk of each (NCCL kernels per epoch), beside the
+                  card's name and power limit;
   8. capture — chess_tmgcn_cls (pallas), chess_tmgcn2_cls (pallas and the
                preset's jnp), chess_wdgcn_cls, chess_wdgcn_lp,
                chess_evolvegcn_cls, chess_evolvegcn2_cls,
@@ -227,9 +246,12 @@ import dataclasses
 import functools
 import gc
 import json
+import os
+import signal
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 from unittest import mock
@@ -272,6 +294,10 @@ SCALE_TRACED_STEPS = 3
 # The SBM presets' 300 epochs cut to 100: each evaluation epoch scores some
 # 6.6M LP edges on the host (seconds), and eval_every is 50.
 SBM_EPOCHS = 100
+# Phase 7p: the 1 x 1 mesh's runs, and the launched CLI's (beside them).
+MESH_EPOCHS = 200
+MESH_CLI_EPOCHS = 20
+MESH_CLI_TIMEOUT_S = 300
 
 
 @contextlib.contextmanager
@@ -2544,6 +2570,242 @@ TIMED_PATHS = (("chess_tmgcn_cls", "pallas"), ("chess_tmgcn2_cls", "pallas"),
 TIMED_PROBE = 5
 
 
+@contextlib.contextmanager
+def _l2_impl(l2_impl: str | None):
+    """The sharded adapter's layer 2 forced to ``l2_impl`` ("gather" or
+    "blockdense"; None: its own ``auto`` rule)."""
+    from tmgcn_torch.parallel import adapter
+
+    if l2_impl is None:
+        yield
+        return
+    make = adapter.make_sharded_edge_adapter
+    with mock.patch.object(adapter, "make_sharded_edge_adapter",
+                           functools.partial(make, l2_impl=l2_impl)):
+        yield
+
+
+@contextlib.contextmanager
+def _experiments_built_once():
+    """``configs.build.build_experiment`` memoized by (config, sharded or
+    not): the eager rerun of a path and its unsharded reference then reuse
+    the adapters built once (the 1 x 1 block-dense layer 2 packs some 14 GB
+    of blocks on the host)."""
+    from tmgcn_torch.configs import build
+
+    built = {}
+    build_experiment = build.build_experiment
+
+    def once(cfg, data_dir=None, artifact=None, device=None, mesh=None):
+        key = (cfg, mesh is None)
+        if key not in built:
+            built[key] = build_experiment(cfg, data_dir, artifact, device, mesh)
+        return built[key]
+
+    with mock.patch.object(build, "build_experiment", once):
+        yield
+
+
+def _mesh_rows_vs_unsharded(np, cfg, got, ref, ref_logits, name: str) -> None:
+    """The 1 x 1 sharded rows against the unsharded run's on the card, at
+    the JAX suite's tolerances for sharded against one device: train loss
+    rtol 1e-4; F1 within 1e-3, or val/test F1 in the range the unsharded
+    run's evaluation logits allow once their tied edges go either way;
+    link prediction's MAP and MRR rtol 1e-3."""
+    lp = cfg.task == "link_pred"
+    loss_col = 2 if lp else 3
+    rel = np.abs(got[:, loss_col] - ref[:, loss_col]) / np.abs(ref[:, loss_col])
+    check(bool(np.all(rel <= 1e-4)), f"{name}: train loss differs from the unsharded run by "
+                                     f"rtol {rel.max()} (epoch {int(rel.argmax())})")
+    if lp:
+        rates = [0, 1, 3, 4, 6, 7]
+        same_nan = np.isnan(got[:, rates]) == np.isnan(ref[:, rates])
+        close = np.nan_to_num(np.abs(got[:, rates] - ref[:, rates])
+                              - 1e-3 * np.abs(ref[:, rates]), nan=0.0) <= 0
+        check(bool(np.all(same_nan & close)), f"{name}: MAP/MRR differ from the unsharded run")
+    else:
+        f1s = [2, 6, 10]
+        same_nan = np.isnan(got[:, f1s]) == np.isnan(ref[:, f1s])
+        close = np.nan_to_num(np.abs(got[:, f1s] - ref[:, f1s]), nan=0.0) <= 1e-3
+        if not bool(np.all(same_nan & close)):
+            _check_eval_f1_in_tie_range(np, cfg, got, ref, ref_logits, name,
+                                        ref="the unsharded run")
+    print(f"{name} vs the unsharded run, {got.shape[0]} epochs: train loss within rtol "
+          f"{rel.max():.3e} (<= 1e-4), {'MAP and MRR' if lp else 'F1'} within 1e-3")
+
+
+def _mesh_path(torch, np, tk, cfg, l2_impl: str | None, name: str, unsharded: dict) -> tuple:
+    """One preset on the 1 x 1 mesh: the counted captured run (no kernel
+    of ours: the sharded path's SpMMs are the segment sum and cuBLAS), the
+    same through the loop's eager chunks on the same adapter (rows
+    bitwise), and the rows against the unsharded run's
+    (``unsharded[cfg.name]``, run once)."""
+    from tmgcn_torch.configs.build import run_experiment
+
+    def run(**kw):
+        with _l2_impl(l2_impl):
+            return run_experiment(cfg, data_dir=DATA_DIR, n_epochs=MESH_EPOCHS, verbose=False,
+                                  device=DEVICE, **kw)
+
+    with _experiments_built_once():
+        out, launches = _counted(tk, lambda: run(mesh_shape=(1, 1)))
+        check(launches == (0,) * len(COUNTERS),
+              f"{name}: the sharded path launched {COUNTED} {launches}; it runs no kernel "
+              "of ours")
+        (res,) = out["results"].values()
+        (_check_lp_rows if cfg.task == "link_pred" else _check_rows)(np, res, name)
+        with _eager_loop():
+            eager = run(mesh_shape=(1, 1))
+        (eager_res,) = eager["results"].values()
+        check(np.array_equal(eager_res, res, equal_nan=True),
+              f"{name}: the captured loop's rows differ from the eager loop's: max abs diff "
+              f"{np.nanmax(np.abs(eager_res - res))}")
+        sec = out["seconds"]
+        print(f"slice {name}: {MESH_EPOCHS} epochs captured and eager (the same adapter), "
+              f"rows bitwise equal; set-up data {sec['data']:.3f} s, adapter "
+              f"{sec['adapter']:.3f} s; train captured {sec['train']:.3f} s, eager "
+              f"{eager['seconds']['train']:.3f} s")
+        if cfg.name not in unsharded:
+            ref_logits = []
+            with _recorded_evals(ref_logits):
+                ref = run()
+            unsharded[cfg.name] = (next(iter(ref["results"].values())), ref_logits)
+    ref_res, ref_logits = unsharded[cfg.name]
+    _mesh_rows_vs_unsharded(np, cfg, res, ref_res, ref_logits, name)
+    return launches
+
+
+def _start_torchrun_cli(cfg, out_dir: str):
+    """Start ``torchrun --standalone --nproc-per-node 1 -m tmgcn_torch.cli
+    run <preset> --mesh graph=1,time=1`` in its own session (it runs while
+    the phase's paths do); ``_check_torchrun_cli`` waits for it."""
+    argv = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+            "--nproc-per-node", "1", "-m", "tmgcn_torch.cli", "run", cfg.name,
+            "--data-dir", DATA_DIR, "--mesh", "graph=1,time=1", "--epochs",
+            str(MESH_CLI_EPOCHS), "--quiet", "--out", out_dir]
+    return subprocess.Popen(argv, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+                            start_new_session=True), time.perf_counter()
+
+
+def _check_torchrun_cli(np, cfg, started, out_dir: str, card: str) -> None:
+    """Exit code 0 and the rows of the same 1 x 1 run in this process; the
+    launched process group is killed past the timeout."""
+    import pickle
+
+    from tmgcn_torch.configs.build import run_experiment
+
+    proc, t0 = started
+    try:
+        log, _ = proc.communicate(timeout=MESH_CLI_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.communicate()
+        check(False, f"torchrun {cfg.name}: no exit within {MESH_CLI_TIMEOUT_S} s")
+    wall = time.perf_counter() - t0
+    check(proc.returncode == 0, f"torchrun {cfg.name} exited {proc.returncode}:\n{log[-3000:]}")
+    (pkl,) = Path(out_dir).glob("results_*.pkl")
+    with open(pkl, "rb") as f:
+        cli_rows = pickle.load(f)
+    here = run_experiment(cfg, data_dir=DATA_DIR, n_epochs=MESH_CLI_EPOCHS, verbose=False,
+                          device=DEVICE, mesh_shape=(1, 1))
+    rows = next(iter(here["results"].values()))
+    check(np.array_equal(cli_rows, rows, equal_nan=True),
+          f"torchrun {cfg.name}: rows differ from the in-process 1 x 1 run: max abs diff "
+          f"{np.nanmax(np.abs(cli_rows - rows))}")
+    print(f"torchrun --nproc-per-node 1 cli run {cfg.name} --mesh graph=1,time=1 --epochs "
+          f"{MESH_CLI_EPOCHS}: exit 0, {wall:.1f} s from its start (process start, data, "
+          f"build, training; beside this phase's paths), rows bitwise the in-process "
+          f"run's [{card}]")
+
+
+def _mesh_step_profile(torch, cfg, card: str) -> None:
+    """chess_tmgcn_cls at 1 x 1 against its unsharded path: set-up seconds
+    (the mesh's groups, data, adapter); collectives issued by one eager
+    evaluation step and one eager plain step; plain epochs captured and
+    eager, sharded and unsharded, timed in turns; a traced captured chunk
+    of each: device ms per epoch, and the NCCL kernels' count and device
+    ms per epoch."""
+    from tmgcn_torch.configs.build import build_experiment, train_config, trial_chunks
+    from tmgcn_torch.parallel import collectives, distributed
+    from tmgcn_torch.parallel.mesh import make_mesh
+    from tmgcn_torch.train import loop
+    from tmgcn_torch.utils import profile_slice
+
+    t0 = time.perf_counter()
+    mesh = make_mesh(1, 1, device=distributed.initialize(DEVICE))
+    t_mesh = time.perf_counter() - t0
+    sharded = build_experiment(cfg, DATA_DIR, device=DEVICE, mesh=mesh)
+    plain = build_experiment(cfg, DATA_DIR, device=DEVICE)
+    print(f"{cfg.name} 1 x 1 set-up: mesh groups {t_mesh:.3f} s, data "
+          f"{sharded.seconds['data']:.3f} s, sharded adapter {sharded.seconds['adapter']:.3f} s "
+          f"(unsharded {plain.seconds['adapter']:.3f} s) [{card}]")
+    tcfg, alpha = train_config(cfg), cfg.alpha_vec[0]
+
+    chunks = trial_chunks(sharded, tcfg, alpha, torch.Generator().manual_seed(0))
+    eager = loop._EagerChunks(chunks.step, chunks.plain.step)
+    calls = {}
+    for what, plain_step in (("evaluation step", False), ("plain step", True)):
+        collectives.CALLS.clear()
+        eager(1, plain=plain_step)
+        calls[what] = dict(collectives.CALLS)
+    print(f"{cfg.name} 1 x 1 collectives issued a step: {json.dumps(calls)}")
+
+    def runner(exp, eager=False):
+        return profile_slice.chunk_runner(exp, tcfg, alpha, torch.Generator().manual_seed(0),
+                                          eager)
+
+    times = profile_slice.timed_chunks({
+        "sharded captured": runner(sharded), "sharded eager": runner(sharded, eager=True),
+        "unsharded captured": runner(plain), "unsharded eager": runner(plain, eager=True),
+    }, TIMED_PROBE)
+    _print_times(f"{cfg.name} 1 x 1 plain epochs,", times, card)
+    n = profile_slice.TRACED_EPOCHS
+    for what, exp in (("sharded", sharded), ("unsharded", plain)):
+        run = runner(exp)
+        run(n).cpu()  # the warm-up step and the capture
+        traced, avg = profile_slice.trace(lambda: run(n).cpu(), n)
+        check(traced["device_ms_per_profiled_epoch"] > 0, f"{what}: the trace shows no device time")
+        nccl = [e for e in avg if "nccl" in e.key.lower()
+                and e.device_type == torch.autograd.DeviceType.CUDA]
+        print(f"{cfg.name} 1 x 1 {what} traced, {n} captured plain epochs: device "
+              f"{traced['device_ms_per_profiled_epoch']:.6f} ms per epoch, busy share "
+              f"{traced['device_busy_share']:.4f}, NCCL kernels "
+              f"{sum(e.count for e in nccl) / n:.1f} per epoch "
+              f"({sum(e.self_device_time_total for e in nccl) / 1e3 / n:.6f} ms); device ms by "
+              f"kernel {json.dumps(traced['device_ms_by_kernel'])} [{card}]")
+
+
+def phase_mesh(torch, np, tk, card: str) -> dict[str, tuple]:
+    """7p: the (graph x time) mesh on one card, NCCL, 1 x 1."""
+    from tmgcn_torch.configs.presets import get_preset
+
+    counts, unsharded = {}, {}
+    tm1 = dataclasses.replace(get_preset("chess_tmgcn_cls"), spmm_impl="pallas")
+    paths = (
+        (tm1, None, "chess_tmgcn_cls (pallas) 1 x 1"),
+        (get_preset("chess_tmgcn2_cls"), "gather", "chess_tmgcn2_cls 1 x 1, layer 2 gather"),
+        (get_preset("chess_tmgcn2_cls"), "blockdense",
+         "chess_tmgcn2_cls 1 x 1, layer 2 blockdense"),
+        (get_preset("chess_tmgcn_lp"), None, "chess_tmgcn_lp 1 x 1"),
+        (get_preset("chess_gcn_cls"), None, "chess_gcn_cls 1 x 1"),
+    )
+    Path("build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir="build") as out_dir:
+        cli = _start_torchrun_cli(tm1, out_dir)
+        try:
+            for cfg, l2_impl, name in paths:
+                counts[name] = _mesh_path(torch, np, tk, cfg, l2_impl, name, unsharded)
+                gc.collect()
+                torch.cuda.empty_cache()
+            _check_torchrun_cli(np, tm1, cli, out_dir, card)
+        finally:
+            if cli[0].poll() is None:  # a failed path: stop the launched run too
+                os.killpg(cli[0].pid, signal.SIGKILL)
+                cli[0].communicate()
+    _mesh_step_profile(torch, tm1, card)
+    return counts
+
+
 def _print_times(what: str, times: dict, card: str, unit: str = "epoch") -> None:
     for name, t in times.items():
         print(f"{what} {name}: {t['median_ms']:.6f} ms per {unit} (median of {t['rounds']} "
@@ -2655,6 +2917,8 @@ def _phases(np, torch, tk, scale_bench) -> int:
         by_path.update(streamed_counts)
         k1.update(k1_scale)
         k1["max_abs_err"] = max(k1["max_abs_err"], *(r["max_abs_err"] for r in k1_scale.values()))
+    with _timed("mesh: 1 x 1 on NCCL"):
+        by_path.update(phase_mesh(torch, np, tk, card))
     by_path.update(fast_counts)
     with _timed("capture timing"):
         profiles = phase_capture_timing(torch, card)

@@ -625,6 +625,59 @@ def test_captured_rows_match_eager(cuda_device, case, optimizer, monkeypatch):
     assert n_captured == n_eager
 
 
+# (task, family, layer-2 impl) of the sharded adapter on the one-card mesh.
+MESH_CASES = {
+    "cls_tmgcn1": ("cls", "tmgcn", "auto"),
+    "cls_tmgcn2_gather": ("cls", "tmgcn2", "gather"),
+    "cls_tmgcn2_blockdense": ("cls", "tmgcn2", "blockdense"),
+    "cls_gcn2": ("cls", "gcn2", "auto"),
+    "lp_tmgcn1": ("lp", "tmgcn", "auto"),
+}
+
+
+@pytest.mark.parametrize("case", sorted(MESH_CASES))
+def test_mesh_one_by_one_on_the_card(cuda_device, case, monkeypatch):
+    """The sharded adapter on the 1 x 1 mesh over NCCL (the one mesh one
+    card allows): 7 epochs, eval_every 3, the loop's captured steps (the
+    collectives inside both graphs) bitwise its eager ones, no kernel of
+    ours launched, and the losses within rtol 1e-4 of the unsharded run's."""
+    from tmgcn_torch.parallel import distributed
+    from tmgcn_torch.parallel.adapter import make_sharded_edge_adapter
+    from tmgcn_torch.parallel.mesh import make_mesh
+    from tmgcn_torch.tasks.adapters import make_edge_adapter
+    from tmgcn_torch.train import loop
+
+    task, family, l2_impl = MESH_CASES[case]
+    model, M, adj, feats, edges, splits = (_lp_problem if task == "lp" else _cls_problem)(
+        family, "jnp")
+    mesh = make_mesh(1, 1, device=distributed.initialize("cuda"))
+    variables = model.init(torch.Generator().manual_seed(0))
+    cfg = loop.TrainConfig(n_epochs=7, eval_every=3)
+    lp = task == "lp"
+
+    def run(adapter):
+        before = _launches()
+        if lp:
+            res, _ = loop.run_link_prediction(adapter, splits, np.array([0.9, 0.1]), cfg,
+                                              variables=variables)
+        else:
+            res, _ = loop.run_edge_classification(adapter, splits, np.array([0.2, 0.5, 0.3]),
+                                                  cfg, variables=variables)
+        return res, [a - b for a, b in zip(_launches(), before)]
+
+    sharded = make_sharded_edge_adapter(model, adj, feats, edges, M, mesh,
+                                        drop_last_slice=lp, l2_impl=l2_impl)
+    captured, n_captured = run(sharded)
+    plain, _ = run(make_edge_adapter(model, adj, feats, edges, M=M, drop_last_slice=lp,
+                                     device=cuda_device))
+    monkeypatch.setattr(loop, "_chunks", loop._EagerChunks)
+    eager, n_eager = run(sharded)
+    np.testing.assert_array_equal(captured, eager)
+    assert n_captured == n_eager == [0] * len(COUNTERS)
+    loss = 2 if lp else 3
+    np.testing.assert_allclose(captured[:, loss], plain[:, loss], rtol=1e-4)
+
+
 def test_chunks_replay_one_captured_step(cuda_device):
     """On the card a chunk is the warm-up step, the capture, then replays:
     K1 counts its launches as they run (2 a step in the restricted 2-layer

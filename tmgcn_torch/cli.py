@@ -20,6 +20,12 @@
     python -m tmgcn_torch.cli run sbm_tmgcn_lp_tuned --epochs 300
                              # SBM link prediction (also sbm_evolvegcn_lp[_tuned],
                              # sbm_tmgcn_lp and sbm_tmgcn_lp_spectral); generated
+    torchrun --standalone --nproc-per-node 4 -m tmgcn_torch.cli run chess_tmgcn_cls \
+        --data-dir data/chess --mesh graph=2,time=2 --epochs 200
+                             # sharded on a (graph x time) mesh, one process per
+                             # card (NCCL); with --device cpu, gloo. TM-GCN (1 or 2
+                             # layers) and KW-GCN, edge classification and link
+                             # prediction; rank 0 prints and writes --out
     python -m tmgcn_torch.cli run chess_tmgcn2_cls --data-dir data/chess \
         --spmm-impl pallas --epochs 1000 --checkpoint-dir ck/
                              # saves after each evaluation epoch (regression: each
@@ -37,7 +43,10 @@ CPU. The results pickles hold each run's (epochs, 12) F1 rows or, for link
 prediction, its (epochs, 9) MAP-MRR rows; for regression, its result dict
 (the per-epoch train losses, val and test L1 and L1 ratio). Checkpoints
 are the port's own files (``train/checkpoint.py``), not the JAX package's
-Orbax directories. Not ported: ``run --mesh`` and ``run --debug-nans``.
+Orbax directories. ``run --mesh graph=G,time=T`` needs G x T processes
+(``torchrun``), one per card; one card allows only ``graph=1,time=1``. Not
+ported: ``run --mesh`` with EvolveGCN-H, WD-GCN, regression or
+``--checkpoint-dir`` (ROADMAP item 14b), and ``run --debug-nans``.
 """
 
 from __future__ import annotations
@@ -46,6 +55,7 @@ import argparse
 import contextlib
 import dataclasses
 import json
+import os
 import pickle
 import time
 from pathlib import Path
@@ -188,11 +198,23 @@ def _cmd_predict(args) -> int:
     return 0
 
 
+def _parse_mesh(spec: str) -> tuple[int, int]:
+    """Parse 'graph=G,time=T' (either key optional, any order)."""
+    parts = dict(kv.split("=", 1) for kv in spec.replace(" ", "").split(",") if kv)
+    unknown = set(parts) - {"graph", "time"}
+    if unknown:
+        raise SystemExit(f"--mesh: unknown axes {sorted(unknown)}; use graph=G,time=T")
+    return int(parts.get("graph", 1)), int(parts.get("time", 1))
+
+
 def _cmd_run(args) -> int:
     from tmgcn_torch.configs.build import run_experiment, run_tag
     from tmgcn_torch.configs.presets import get_preset
     from tmgcn_torch.train.logging import summarize, write_metrics_jsonl
 
+    mesh_shape = _parse_mesh(args.mesh) if args.mesh else None
+    # Every rank of a sharded run trains the same rows; rank 0 reports them.
+    lead = mesh_shape is None or int(os.environ.get("RANK", 0)) == 0
     cfg = get_preset(args.preset)
     if args.seed is not None:
         cfg = dataclasses.replace(cfg, seed=args.seed)
@@ -212,12 +234,20 @@ def _cmd_run(args) -> int:
             artifact=args.artifact,
             n_epochs=args.epochs,
             alpha_vec=alphas,
-            verbose=not args.quiet,
+            verbose=not args.quiet and lead,
             checkpoint_dir=args.checkpoint_dir,
+            mesh_shape=mesh_shape,
             device=args.device,
         )
     elapsed = time.time() - t0
-    print(f"{cfg.name}: {len(out['results'])} runs in {elapsed:.1f}s on {args.device}")
+    if mesh_shape:
+        from tmgcn_torch.parallel import distributed
+
+        distributed.shutdown()
+    if not lead:
+        return 0
+    mesh = f" on a {mesh_shape[0]}x{mesh_shape[1]} mesh" if mesh_shape else ""
+    print(f"{cfg.name}: {len(out['results'])} runs in {elapsed:.1f}s on {args.device}{mesh}")
 
     if args.out:
         out_dir = Path(args.out)
@@ -294,6 +324,8 @@ def main(argv=None) -> int:
     rp.add_argument("--quiet", action="store_true")
     rp.add_argument("--profile", metavar="DIR",
                     help="trace the run with torch.profiler into DIR/trace.json")
+    rp.add_argument("--mesh", help="sharded execution, e.g. graph=4,time=2 (one process "
+                                   "per device: launch with torchrun)")
 
     pp2 = sub.add_parser("predict", help="restore a checkpoint and score a window's edges")
     pp2.add_argument("preset")

@@ -352,15 +352,51 @@ class Experiment:
         return self.cfg.task == "link_pred"
 
 
+def _make_edge_adapter(cfg, model, data, model_edges, link_pred: bool, device,
+                       mesh) -> ModelAdapter:
+    """Single-device or sharded adapter, depending on mesh (the JAX
+    package's ``_make_adapter``)."""
+    if mesh is None:
+        return make_edge_adapter(
+            model, data.adj, data.feats, model_edges,
+            M=data.M if cfg.method == "tmgcn" else None, drop_last_slice=link_pred,
+            device=device,
+        )
+    from tmgcn_torch.parallel.adapter import make_sharded_edge_adapter
+
+    return make_sharded_edge_adapter(
+        model, data.adj, data.feats, model_edges, data.M, mesh, drop_last_slice=link_pred,
+    )
+
+
+def _check_mesh_run(cfg: ExperimentConfig, checkpoint_dir) -> None:
+    """The sharded runs this port has (ROADMAP item 14a): TM-GCN (1 and 2
+    layers) and KW-GCN, edge classification and link prediction."""
+    if cfg.method not in ("tmgcn", "gcn") or cfg.task == "regression":
+        raise NotImplementedError(
+            f"--mesh with method {cfg.method!r} / task {cfg.task!r} is not ported yet "
+            "(ROADMAP queue 1, item 14b: the recurrent graph-axis adapter and sharded "
+            "regression)"
+        )
+    if checkpoint_dir is not None:
+        raise NotImplementedError(
+            "checkpoints under a mesh are not ported yet (ROADMAP queue 1, item 14b)"
+        )
+
+
 def build_experiment(
     cfg: ExperimentConfig,
     data_dir: str | Path | None = None,
     artifact: str | Path | None = None,
     device: str | torch.device | None = None,
+    mesh=None,
 ) -> Experiment:
     """The data, splits and adapter of one config, on ``device`` (cuda
-    unless told otherwise)."""
-    device = resolve_device(device)
+    unless told otherwise). With a ``parallel.mesh.Mesh``, the sharded
+    adapter on the mesh's device (this rank's)."""
+    device = resolve_device(device) if mesh is None else mesh.device
+    if mesh is not None:
+        _check_mesh_run(cfg, None)
     t0 = time.perf_counter()
     data = build_data(cfg, data_dir=data_dir, artifact=artifact)
     t_data = time.perf_counter() - t0
@@ -387,11 +423,7 @@ def build_experiment(
             )
             model_edges = {w: splits[w].edges for w in WINDOWS}
             model = build_model(cfg, data.spec.s_train, in_feat)
-        adapter = make_edge_adapter(
-            model, data.adj, data.feats, model_edges,
-            M=data.M if cfg.method == "tmgcn" else None, drop_last_slice=link_pred,
-            device=device,
-        )
+        adapter = _make_edge_adapter(cfg, model, data, model_edges, link_pred, device, mesh)
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     t_adapter = time.perf_counter() - t0
@@ -479,11 +511,24 @@ def run_experiment(
     the newest checkpoint there; every run still draws its initial
     parameters from the shared generator, so later runs start as they
     would have.
+
+    ``mesh_shape`` (n_graph, n_time) trains through the sharded (graph x
+    time) path (parallel/adapter.py): TM-GCN (1 or 2 layers) and KW-GCN,
+    edge classification and link prediction, one process per device —
+    under ``torchrun`` each rank calls this, and every rank returns the
+    same rows; without its environment the world is this process alone,
+    so only a 1 x 1 mesh fits. NCCL on ``cuda`` (this rank's card), gloo on
+    ``cpu``.
     """
     device = resolve_device(device)
+    mesh = None
     if mesh_shape is not None:
-        raise NotImplementedError("multi-device runs are not ported yet (ROADMAP queue 1, item 14)")
-    exp = build_experiment(cfg, data_dir, artifact, device)
+        from tmgcn_torch.parallel import distributed
+        from tmgcn_torch.parallel.mesh import make_mesh
+
+        _check_mesh_run(cfg, checkpoint_dir)
+        mesh = make_mesh(*mesh_shape, device=distributed.initialize(device))
+    exp = build_experiment(cfg, data_dir, artifact, device, mesh)
     tcfg = train_config(cfg, n_epochs, verbose)
     alphas = alpha_vec if alpha_vec is not None else cfg.alpha_vec
 

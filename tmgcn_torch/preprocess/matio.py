@@ -15,6 +15,7 @@ inputs.
 
 from __future__ import annotations
 
+import os
 from pathlib import Path
 
 import numpy as np
@@ -58,7 +59,14 @@ def save_artifact(path: str | Path, data: PreprocessedData) -> None:
     # Explicit subscript convention (extra keys are ignored by the
     # reference scripts); load_artifact skips base auto-detection.
     out["subs_base"] = np.asarray([[1]], np.int64)
-    sio.savemat(str(path), out)
+    # Written beside the target and renamed over it: the ranks of a sharded
+    # run may build the same cache at once, and a reader never sees half.
+    tmp = Path(f"{path}.{os.getpid()}.tmp")
+    try:
+        sio.savemat(str(tmp), out, appendmat=False)
+        os.replace(tmp, path)
+    finally:
+        tmp.unlink(missing_ok=True)
 
 
 def _tensor_from_keys(

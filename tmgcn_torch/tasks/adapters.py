@@ -354,13 +354,20 @@ class ModelAdapter:
     ``initial_carry(variables)``: the carry a forward of the train window
     starts from when the loops' threading is replayed outside them (``cli
     predict``): EvolveGCN-H's frozen initial weights, ``()`` for the
-    others."""
+    others.
+
+    ``train_stats(variables, bundle, target, class_weights,
+    logit_transform, confusion)``, where given (the sharded adapters of
+    parallel/adapter.py), is (loss, (tp, fp, fn) or ()) of the train
+    window without the full logits: the loops' plain epochs train on it.
+    The single-device adapters leave it None."""
 
     init: Callable[[torch.Generator], dict]
     apply: Callable[[dict, dict, Any], tuple[torch.Tensor, Any]]
     bundles: dict[str, dict]
     device: torch.device
     initial_carry: Callable[[dict], tuple] = _no_carry
+    train_stats: Callable | None = None
 
 
 # The JAX package's prepacked-operator impls.

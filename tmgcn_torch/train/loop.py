@@ -22,7 +22,11 @@ On a card every epoch's step is one CUDA graph, captured once and replayed
 — the port of the JAX package's ``chunk_step`` (a ``lax.scan`` of steps in
 one device call): a chunk of k plain epochs is k replays with no kernel
 issued from Python between them, and evaluation epochs replay the same
-graph. There is no switch: on the CPU the same step runs eagerly.
+graph. There is no switch: on the CPU the same step runs eagerly. An
+adapter with ``train_stats`` (the sharded ones) has a second step for the
+plain epochs, as the JAX package's ``chunk_step`` trains on it: loss and
+confusion counts without the full logits. It is captured as a graph of its
+own, over the same parameters, optimizer state and stats ring.
 
 Checkpoints (``train.checkpoint.RunCheckpointer``), as the JAX package
 takes them: classification and link prediction save after each evaluation
@@ -287,9 +291,34 @@ class _Step:
         stats = [loss.detach().double()]
         if self.with_confusion:
             stats.extend(c.double() for c in _confusion(out, self.tgt))
+        self._record(stats)
+        return out, tuple(c.detach() for c in carry)
+
+    def _record(self, stats: list[torch.Tensor]) -> None:
         self.stats.index_copy_(0, self.slot, torch.stack(stats)[None])
         self.slot.add_(1).remainder_(self.capacity)
-        return out, tuple(c.detach() for c in carry)
+
+
+class _StatsStep(_Step):
+    """The step of the plain epochs on an adapter with ``train_stats`` (the
+    sharded adapters): the JAX package's ``sgd_step_stats``. Its loss and
+    confusion counts come from ``train_stats``, which never restores the
+    full logits; it shares ``step``'s parameters, optimizer and stats ring,
+    and returns (None, ()).
+    """
+
+    def __init__(self, step: _Step, class_weights: torch.Tensor):
+        self.__dict__.update(step.__dict__)
+        self.cw = class_weights
+
+    def __call__(self) -> tuple[None, tuple]:
+        loss, counts = self.adapter.train_stats(
+            self.variables, self.bundle, self.tgt, self.cw, self.logit_transform,
+            confusion=self.with_confusion,
+        )
+        self.opt.step(list(torch.autograd.grad(loss, self.opt.params)))
+        self._record([loss.detach().double(), *(c.double() for c in counts)])
+        return None, ()
 
 
 class _EagerChunks:
@@ -297,23 +326,30 @@ class _EagerChunks:
     card the reference that the captured chunks are held to.
 
     ``chunks(n)`` takes n steps and returns the last one's (out, carry);
-    ``stats(n)`` is the stats rows of the last n steps, oldest first (the
-    steps this runner took: a resumed run's first step is its first).
-    ``resumed``: (epoch, results rows) of the checkpoint the step's state
-    was restored from, or None.
+    ``chunks(n, plain=True)`` takes them with ``plain``, the step of the
+    plain epochs where the adapter has one (``_StatsStep``), and returns
+    its (None, ()); ``stats(n)`` is the stats rows of the last n steps,
+    oldest first (the steps this runner took: a resumed run's first step is
+    its first). ``resumed``: (epoch, results rows) of the checkpoint the
+    step's state was restored from, or None.
     """
 
-    def __init__(self, step: _Step):
+    def __init__(self, step: _Step, plain: _Step | None = None):
         self.step = step
+        self.plain = type(self)(plain) if plain is not None else None
         self.n_done = 0
         self.resumed = None
 
-    def __call__(self, n: int) -> tuple[torch.Tensor, object]:
+    def __call__(self, n: int, plain: bool = False) -> tuple[torch.Tensor, object]:
         if n < 1:
             raise ValueError(f"a chunk takes at least one step, not {n}")
+        out = self.plain(n) if plain and self.plain is not None else self._run(n)
+        self.n_done += n
+        return out
+
+    def _run(self, n: int) -> tuple[torch.Tensor, object]:
         for _ in range(n):
             out = self.step()
-        self.n_done += n
         return out
 
     def stats(self, n: int) -> torch.Tensor:
@@ -352,26 +388,22 @@ class _CapturedChunks(_EagerChunks):
     replay that fails, raises; nothing falls back to the eager steps.
     """
 
-    def __init__(self, step: _Step):
-        super().__init__(step)
+    def __init__(self, step: _Step, plain: _Step | None = None):
+        super().__init__(step, plain)
         self.graph = None
         self.out = None
         self.launches = spmm_cuda.LaunchLog()
 
-    def __call__(self, n: int) -> tuple[torch.Tensor, object]:
-        if n < 1:
-            raise ValueError(f"a chunk takes at least one step, not {n}")
+    def _run(self, n: int) -> tuple[torch.Tensor, object]:
         if self.graph is None:
             out = self._warm_up()
             self._capture()
-            self.n_done += 1
             n -= 1
             if n == 0:
                 return out
         for _ in range(n):
             self.graph.replay()
         self.launches.replayed(n)
-        self.n_done += n
         return self.out
 
     def _warm_up(self) -> tuple[torch.Tensor, object]:
@@ -393,9 +425,11 @@ class _CapturedChunks(_EagerChunks):
         self.graph = graph
 
 
-def _chunks(step: _Step) -> _EagerChunks:
-    """The step's chunk runner: captured on a card, eager on the CPU."""
-    return _CapturedChunks(step) if step.device.type == "cuda" else _EagerChunks(step)
+def _chunks(step: _Step, plain: _Step | None = None) -> _EagerChunks:
+    """The steps' chunk runner: captured on a card (each step its own graph),
+    eager on the CPU."""
+    runner = _CapturedChunks if step.device.type == "cuda" else _EagerChunks
+    return runner(step, plain)
 
 
 def _lp_target(train: LinkPredSplit) -> np.ndarray:
@@ -463,12 +497,17 @@ def train_chunks(
                  with_confusion=task == "edge_cls",
                  capacity=capacity if capacity is not None else max(cfg.n_epochs, 1),
                  logit_transform=transform)
+    # Plain epochs train on the adapter's train_stats where it has one, as
+    # the JAX package's chunk_step does (tmgcn_tpu/train/loop.py:112-140).
+    plain = None
+    if adapter.train_stats is not None and task != "regression":
+        plain = _StatsStep(step, cw)
 
     @torch.no_grad()
     def eval_forward(window: str, carry):
         return adapter.apply(variables, adapter.bundles[window], carry)
 
-    chunks = _chunks(step)
+    chunks = _chunks(step, plain)
     chunks.resumed = resumed
     return chunks, eval_forward, variables
 
@@ -540,7 +579,7 @@ def run_edge_classification(
         # Non-evaluation epochs: stats stay on the device until the chunk ends.
         k = min(cfg.eval_every - 1, cfg.n_epochs - ep)
         if k > 0:
-            chunks(k)
+            chunks(k, plain=True)
             for i, (loss_i, tp_i, fp_i, fn_i) in enumerate(chunks.stats(k).cpu().numpy()):
                 p_tr, r_tr, f1_tr = _f1(tp_i, fp_i, fn_i)
                 results[ep + i] = [p_tr, r_tr, f1_tr, loss_i, *val_stats, *test_stats]
@@ -647,7 +686,7 @@ def run_link_prediction(
         # Non-evaluation epochs: losses stay on the device until the chunk ends.
         k = min(cfg.eval_every - 1, cfg.n_epochs - ep)
         if k > 0:
-            chunks(k)
+            chunks(k, plain=True)
             losses = chunks.stats(k)[:, 0].cpu().numpy()
             for i in range(k):
                 results[ep + i] = [*tr_stats, losses[i], *val_stats, *test_stats]

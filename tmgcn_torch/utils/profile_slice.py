@@ -70,10 +70,10 @@ def chunk_runner(exp, tcfg, alpha: float, generator: torch.Generator, eager: boo
     to."""
     chunks = trial_chunks(exp, tcfg, alpha, generator, capacity=1)
     if eager:
-        chunks = loop._EagerChunks(chunks.step)
+        chunks = loop._EagerChunks(chunks.step, chunks.plain and chunks.plain.step)
 
     def run(n):
-        chunks(n)
+        chunks(n, plain=True)
         return chunks.stats(1)
 
     return run
