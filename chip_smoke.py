@@ -221,6 +221,19 @@ non-zero, and nothing falls back to the CPU:
                   unsharded, captured and eager, timed in turns, and a traced
                   captured chunk of each (NCCL kernels per epoch), beside the
                   card's name and power limit;
+               q. the recurrent families and regression on the 1 x 1 NCCL
+                  mesh: ``run_experiment(mesh_shape=(1, 1))`` of
+                  chess_wdgcn_cls, chess_evolvegcn_cls, chess_evolvegcn2_cls
+                  (the distributed top-k), chess_evolvegcn_lp,
+                  seir_tmgcn_reg_tuned, seir_wdgcn_reg_tuned and
+                  seir_evolvegcn_reg_tuned, 50 epochs each: 0 launches of
+                  our kernels, captured vs eager on the same adapter (rows
+                  or results bitwise), against the unsharded run (train
+                  loss rtol 1e-4; F1 within 1e-3 or the unsharded logits'
+                  tie range; MAP/MRR rtol 1e-3; val/test L1 and L1 ratio
+                  rtol 1e-3); chess_tmgcn_cls at 1 x 1 with checkpoints,
+                  101 epochs saving at 0 and 100, resumed to 200: train
+                  columns bitwise the uninterrupted sharded run's;
   8. capture — chess_tmgcn_cls (pallas), chess_tmgcn2_cls (pallas and the
                preset's jnp), chess_wdgcn_cls, chess_wdgcn_lp,
                chess_evolvegcn_cls, chess_evolvegcn2_cls,
@@ -298,6 +311,14 @@ SBM_EPOCHS = 100
 MESH_EPOCHS = 200
 MESH_CLI_EPOCHS = 20
 MESH_CLI_TIMEOUT_S = 300
+# Phase 7q: the recurrent families and regression at 1 x 1, each path's
+# epochs cut (EvolveGCN-2's eager epoch is ~133 ms; chess evaluates at 0,
+# SEIR scores val and test after its one chunk).
+MESH_RECURRENT_PRESETS = (
+    "chess_wdgcn_cls", "chess_evolvegcn_cls", "chess_evolvegcn2_cls", "chess_evolvegcn_lp",
+    "seir_tmgcn_reg_tuned", "seir_wdgcn_reg_tuned", "seir_evolvegcn_reg_tuned",
+)
+MESH_RECURRENT_EPOCHS = 50
 
 
 @contextlib.contextmanager
@@ -2634,7 +2655,21 @@ def _mesh_rows_vs_unsharded(np, cfg, got, ref, ref_logits, name: str) -> None:
           f"{rel.max():.3e} (<= 1e-4), {'MAP and MRR' if lp else 'F1'} within 1e-3")
 
 
-def _mesh_path(torch, np, tk, cfg, l2_impl: str | None, name: str, unsharded: dict) -> tuple:
+def _mesh_regression_vs_unsharded(np, got: dict, ref: dict, name: str) -> None:
+    """The 1 x 1 sharded regression result against the unsharded run's:
+    train losses rtol 1e-4, val/test L1 and L1 ratio rtol 1e-3."""
+    rel = np.abs(got["train_loss"] - ref["train_loss"]) / np.abs(ref["train_loss"])
+    check(bool(np.all(rel <= 1e-4)), f"{name}: train loss differs from the unsharded run by "
+                                     f"rtol {rel.max()} (epoch {int(rel.argmax())})")
+    for k in REG_KEYS[1:]:
+        check(bool(np.isclose(got[k], ref[k], rtol=1e-3, atol=0)),
+              f"{name}: {k} {got[k]} differs from the unsharded run's {ref[k]}")
+    print(f"{name} vs the unsharded run, {got['train_loss'].shape[0]} epochs: train loss within "
+          f"rtol {rel.max():.3e} (<= 1e-4), val/test L1 and L1 ratio within rtol 1e-3")
+
+
+def _mesh_path(torch, np, tk, cfg, l2_impl: str | None, name: str, unsharded: dict,
+               epochs: int = MESH_EPOCHS) -> tuple:
     """One preset on the 1 x 1 mesh: the counted captured run (no kernel
     of ours: the sharded path's SpMMs are the segment sum and cuBLAS), the
     same through the loop's eager chunks on the same adapter (rows
@@ -2642,10 +2677,15 @@ def _mesh_path(torch, np, tk, cfg, l2_impl: str | None, name: str, unsharded: di
     (``unsharded[cfg.name]``, run once)."""
     from tmgcn_torch.configs.build import run_experiment
 
+    regression = cfg.task == "regression"
+
     def run(**kw):
         with _l2_impl(l2_impl):
-            return run_experiment(cfg, data_dir=DATA_DIR, n_epochs=MESH_EPOCHS, verbose=False,
+            return run_experiment(cfg, data_dir=DATA_DIR, n_epochs=epochs, verbose=False,
                                   device=DEVICE, **kw)
+
+    def same(a, b):
+        return _same_regression(np, a, b) if regression else np.array_equal(a, b, equal_nan=True)
 
     with _experiments_built_once():
         out, launches = _counted(tk, lambda: run(mesh_shape=(1, 1)))
@@ -2653,15 +2693,18 @@ def _mesh_path(torch, np, tk, cfg, l2_impl: str | None, name: str, unsharded: di
               f"{name}: the sharded path launched {COUNTED} {launches}; it runs no kernel "
               "of ours")
         (res,) = out["results"].values()
-        (_check_lp_rows if cfg.task == "link_pred" else _check_rows)(np, res, name)
+        if regression:
+            check(bool(np.all(np.isfinite(res["train_loss"])))
+                  and all(np.isfinite(res[k]) for k in REG_KEYS[1:]), f"{name}: not finite")
+        else:
+            (_check_lp_rows if cfg.task == "link_pred" else _check_rows)(np, res, name)
         with _eager_loop():
             eager = run(mesh_shape=(1, 1))
         (eager_res,) = eager["results"].values()
-        check(np.array_equal(eager_res, res, equal_nan=True),
-              f"{name}: the captured loop's rows differ from the eager loop's: max abs diff "
-              f"{np.nanmax(np.abs(eager_res - res))}")
+        check(same(eager_res, res), f"{name}: the captured loop's rows differ from the eager "
+                                    "loop's")
         sec = out["seconds"]
-        print(f"slice {name}: {MESH_EPOCHS} epochs captured and eager (the same adapter), "
+        print(f"slice {name}: {epochs} epochs captured and eager (the same adapter), "
               f"rows bitwise equal; set-up data {sec['data']:.3f} s, adapter "
               f"{sec['adapter']:.3f} s; train captured {sec['train']:.3f} s, eager "
               f"{eager['seconds']['train']:.3f} s")
@@ -2671,7 +2714,10 @@ def _mesh_path(torch, np, tk, cfg, l2_impl: str | None, name: str, unsharded: di
                 ref = run()
             unsharded[cfg.name] = (next(iter(ref["results"].values())), ref_logits)
     ref_res, ref_logits = unsharded[cfg.name]
-    _mesh_rows_vs_unsharded(np, cfg, res, ref_res, ref_logits, name)
+    if regression:
+        _mesh_regression_vs_unsharded(np, res, ref_res, name)
+    else:
+        _mesh_rows_vs_unsharded(np, cfg, res, ref_res, ref_logits, name)
     return launches
 
 
@@ -2806,6 +2852,70 @@ def phase_mesh(torch, np, tk, card: str) -> dict[str, tuple]:
     return counts
 
 
+def _mesh_resume(torch, np, tk) -> tuple:
+    """chess_tmgcn_cls on the 1 x 1 mesh with checkpoints (rank 0, this
+    process, writes; a barrier after each save): 200 epochs uninterrupted,
+    101 saving at its evaluation epochs 0 and 100, then resumed to 200
+    from the newest: rows 0-100 the uninterrupted run's, the train columns
+    from 101 on bitwise; no kernel of ours in either run."""
+    import shutil
+
+    from tmgcn_torch.configs.build import run_experiment, run_tag
+    from tmgcn_torch.configs.presets import get_preset
+    from tmgcn_torch.train.checkpoint import RunCheckpointer
+
+    cfg = get_preset("chess_tmgcn_cls")
+    name = "chess_tmgcn_cls 1 x 1, resumed"
+    root = Path(CKPT_DIR) / "mesh"
+    shutil.rmtree(root, ignore_errors=True)
+
+    def run(n, ck=None):
+        out, launches = _counted(tk, lambda: run_experiment(
+            cfg, data_dir=DATA_DIR, n_epochs=n, verbose=False, device=DEVICE, mesh_shape=(1, 1),
+            checkpoint_dir=ck))
+        check(launches == (0,) * len(COUNTERS), f"{name}: launched {COUNTED} {launches}")
+        return next(iter(out["results"].values())), launches
+
+    try:
+        with _experiments_built_once():
+            full, launches = run(MESH_EPOCHS)
+            part, _ = run(RESUME_SAVED, root)
+            ck = RunCheckpointer(root / cfg.name / run_tag(0, cfg.alpha_vec[0]))
+            check(ck.latest_epoch() == RESUME_SAVED - 1,
+                  f"{name}: newest checkpoint {ck.latest_epoch()}, not {RESUME_SAVED - 1}")
+            resumed, _ = run(MESH_EPOCHS, root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    check(np.array_equal(part, full[:RESUME_SAVED], equal_nan=True),
+          f"{name}: the interrupted run's rows differ from the uninterrupted run's")
+    check(np.array_equal(resumed[:RESUME_SAVED], full[:RESUME_SAVED], equal_nan=True),
+          f"{name}: the restored rows differ from the uninterrupted run's")
+    check(np.array_equal(resumed[RESUME_SAVED:, :4], full[RESUME_SAVED:, :4], equal_nan=True),
+          f"{name}: train columns from {RESUME_SAVED} on differ from the uninterrupted run's: "
+          f"max abs diff {np.nanmax(np.abs(resumed[:, :4] - full[:, :4]))}")
+    print(f"{name}: {RESUME_SAVED} epochs saving at 0 and {RESUME_SAVED - 1}, resumed to "
+          f"{MESH_EPOCHS}: rows 0-{RESUME_SAVED - 1} and train columns {RESUME_SAVED}-"
+          f"{MESH_EPOCHS - 1} bitwise the uninterrupted sharded run's; 0 kernel launches")
+    return launches
+
+
+def phase_mesh_recurrent(torch, np, tk) -> dict[str, tuple]:
+    """7q: the recurrent families and regression on the 1 x 1 NCCL mesh,
+    and a sharded run resumed from its checkpoint."""
+    from tmgcn_torch.configs.presets import get_preset
+
+    counts, unsharded = {}, {}
+    for preset in MESH_RECURRENT_PRESETS:
+        cfg = get_preset(preset)
+        name = f"{preset} 1 x 1"
+        counts[name] = _mesh_path(torch, np, tk, cfg, None, name, unsharded,
+                                  epochs=MESH_RECURRENT_EPOCHS)
+        gc.collect()
+        torch.cuda.empty_cache()
+    counts["chess_tmgcn_cls 1 x 1, resumed"] = _mesh_resume(torch, np, tk)
+    return counts
+
+
 def _print_times(what: str, times: dict, card: str, unit: str = "epoch") -> None:
     for name, t in times.items():
         print(f"{what} {name}: {t['median_ms']:.6f} ms per {unit} (median of {t['rounds']} "
@@ -2919,6 +3029,8 @@ def _phases(np, torch, tk, scale_bench) -> int:
         k1["max_abs_err"] = max(k1["max_abs_err"], *(r["max_abs_err"] for r in k1_scale.values()))
     with _timed("mesh: 1 x 1 on NCCL"):
         by_path.update(phase_mesh(torch, np, tk, card))
+    with _timed("mesh: recurrent families, regression and resume at 1 x 1"):
+        by_path.update(phase_mesh_recurrent(torch, np, tk))
     by_path.update(fast_counts)
     with _timed("capture timing"):
         profiles = phase_capture_timing(torch, card)

@@ -632,6 +632,11 @@ MESH_CASES = {
     "cls_tmgcn2_blockdense": ("cls", "tmgcn2", "blockdense"),
     "cls_gcn2": ("cls", "gcn2", "auto"),
     "lp_tmgcn1": ("lp", "tmgcn", "auto"),
+    # The recurrent families over graph (phase 7q of chip_smoke.py).
+    "cls_wdgcn": ("cls", "wdgcn", "auto"),
+    "cls_evolvegcn1": ("cls", "evolvegcn", "auto"),
+    "cls_evolvegcn2": ("cls", "evolvegcn2", "auto"),
+    "lp_evolvegcn1": ("lp", "evolvegcn", "auto"),
 }
 
 
@@ -911,3 +916,68 @@ def test_sbm_launches(cuda_device, preset, generic, monkeypatch):
     assert n_captured == n_eager == (7 if generic else 3)
     assert captured.shape == (7, 9) and np.all(np.isfinite(captured[:, 2]))
     np.testing.assert_array_equal(captured, eager)
+
+
+@pytest.mark.parametrize("preset", sorted(REGRESSION_K1))
+def test_mesh_regression_on_the_card(cuda_device, preset, monkeypatch):
+    """A _tuned SEIR preset at 60 nodes x 20 slices on the 1 x 1 NCCL mesh,
+    7 epochs in chunks of 3 (phase 7q of chip_smoke.py): the captured
+    loop's result bitwise the eager loop's, no kernel of ours, and against
+    the unsharded run train losses rtol 1e-4, val/test L1 and L1 ratio rtol
+    1e-3."""
+    import dataclasses
+
+    from tmgcn_torch.configs import build
+    from tmgcn_torch.configs.presets import get_preset
+    from tmgcn_torch.train import loop
+
+    cfg = dataclasses.replace(get_preset(preset), seir_n_nodes=60, seir_n_slices=20,
+                              eval_every=3)
+
+    def run(**kw):
+        before = _launches()
+        out = build.run_experiment(cfg, n_epochs=7, verbose=False, device=cuda_device, **kw)
+        return next(iter(out["results"].values())), [a - b for a, b in zip(_launches(), before)]
+
+    captured, n_captured = run(mesh_shape=(1, 1))
+    plain, _ = run()
+    monkeypatch.setattr(loop, "_chunks", loop._EagerChunks)
+    eager, n_eager = run(mesh_shape=(1, 1))
+    assert n_captured == n_eager == [0] * len(COUNTERS)
+    np.testing.assert_allclose(captured["train_loss"], plain["train_loss"], rtol=1e-4)
+    for k, v in captured.items():
+        np.testing.assert_array_equal(v, eager[k], err_msg=k)
+        np.testing.assert_allclose(v, plain[k], rtol=1e-3, err_msg=k)
+
+
+def test_mesh_resume_on_the_card(cuda_device, tmp_path):
+    """EvolveGCN-H (its evolved weights the carry) on the 1 x 1 NCCL mesh
+    with a checkpointer of the world (rank 0 writes, a barrier after each
+    save): 8 epochs, eval_every 3; 4 that save and a resume to 8: the
+    resumed train columns bitwise the uninterrupted run's."""
+    import torch.distributed as dist
+
+    from tmgcn_torch.parallel import distributed
+    from tmgcn_torch.parallel.adapter import make_sharded_edge_adapter
+    from tmgcn_torch.parallel.mesh import make_mesh
+    from tmgcn_torch.train import loop
+    from tmgcn_torch.train.checkpoint import RunCheckpointer
+
+    model, M, adj, feats, edges, splits = _cls_problem("evolvegcn", "jnp")
+    mesh = make_mesh(1, 1, device=distributed.initialize("cuda"))
+    ad = make_sharded_edge_adapter(model, adj, feats, edges, M, mesh)
+    variables = model.init(torch.Generator().manual_seed(0))
+    cw = np.array([0.2, 0.5, 0.3])
+
+    def run(n, ck=None):
+        cfg = loop.TrainConfig(n_epochs=n, eval_every=3)
+        return loop.run_edge_classification(ad, splits, cw, cfg, variables=variables,
+                                            checkpointer=ck)[0]
+
+    full = run(8)
+    ck = RunCheckpointer(tmp_path / "run", group=dist.group.WORLD)
+    run(4, ck)
+    assert ck.latest_epoch() == 3
+    resumed = run(8, ck)
+    np.testing.assert_array_equal(resumed[:, :4], full[:, :4])
+    np.testing.assert_array_equal(resumed[:4], full[:4])

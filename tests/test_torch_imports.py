@@ -106,16 +106,11 @@ def test_cli_list(capsys):
     ],
 )
 def test_unported_paths_raise(preset, kwargs):
-    """The mesh paths not ported yet (the recurrent families, checkpoints
-    under a mesh) raise naming ROADMAP item 14b; a ported path on a mesh
-    larger than the world (this process alone, no launcher) raises naming
-    the world size — before any data is built."""
-    if preset == "chess_evolvegcn2_cls" or "checkpoint_dir" in kwargs:
-        error, match = NotImplementedError, "ROADMAP queue 1, item 14b"
-    else:
-        G, T = kwargs["mesh_shape"]
-        error, match = ValueError, rf"mesh {G}x{T} != 1 devices \(the world size\)"
-    with pytest.raises(error, match=match):
+    """Every family shards now (the recurrent ones over graph, with and
+    without checkpoints); a mesh larger than the world (this process alone,
+    no launcher) raises naming the world size, before any data is built."""
+    G, T = kwargs["mesh_shape"]
+    with pytest.raises(ValueError, match=rf"mesh {G}x{T} != 1 devices \(the world size\)"):
         build.run_experiment(
             get_preset(preset), data_dir=ROOT / "data" / "chess", device="cpu", **kwargs
         )

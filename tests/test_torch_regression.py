@@ -435,9 +435,23 @@ def test_regression_without_a_card_raises(monkeypatch):
 
 
 def test_regression_on_a_mesh_is_not_ported():
-    with pytest.raises(NotImplementedError, match="item 14"):
-        tbuild.run_experiment(tpresets.get_preset("seir_tmgcn_reg"), n_epochs=1, device="cpu",
-                              mesh_shape=(2, 1))
+    """Regression shards now: on the 1 x 1 mesh (this process as the world)
+    seir_tmgcn_reg_tuned's result is the unsharded run's (train losses, val
+    and test L1 and L1 ratio rtol 1e-3); a mesh larger than the world
+    raises naming the world size."""
+    from tmgcn_torch.parallel import distributed
+
+    distributed.initialize("cpu")
+    cfg = tpresets.get_preset("seir_tmgcn_reg_tuned")
+    (sharded,) = tbuild.run_experiment(cfg, n_epochs=4, verbose=False, device="cpu",
+                                       mesh_shape=(1, 1))["results"].values()
+    (plain,) = tbuild.run_experiment(cfg, n_epochs=4, verbose=False,
+                                     device="cpu")["results"].values()
+    assert sharded.keys() == plain.keys()
+    for k, v in plain.items():
+        np.testing.assert_allclose(sharded[k], v, rtol=1e-3, err_msg=k)
+    with pytest.raises(ValueError, match=r"mesh 2x1 != 1 devices \(the world size\)"):
+        tbuild.run_experiment(cfg, n_epochs=1, device="cpu", mesh_shape=(2, 1))
 
 
 def test_cli_runs_seir_regression_on_the_cpu(tmp_path):

@@ -18,6 +18,8 @@ exchange with halo > T_loc (several hops) and its gradient against the
 dense M-transform; and the JAX package's refusals, message for message.
 """
 
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -268,5 +270,27 @@ def test_two_layer_refusals_as_jax(family, kw):
 
 @pytest.mark.parametrize("family", [EvolveGCN, WDGCN])
 def test_recurrent_families_wait_for_14b(family):
-    ours, _ = _refusal(family(n_slices=8, in_feat=4, hidden_feat=(6, 2)), None)
-    assert isinstance(ours, NotImplementedError) and "item 14b" in str(ours)
+    """The recurrent families shard over graph alone: a time axis raises
+    the JAX package's refusal, message for message (the port's refusal
+    comes before any collective, so a 1 x 2 view of this one-process world
+    reaches it)."""
+    from tmgcn_tpu.models.evolvegcn import EvolveGCN as JEvolveGCN
+    from tmgcn_tpu.models.wdgcn import WDGCN as JWDGCN
+
+    p = W.problem()
+    wins = ("train", "val", "test")
+    A = TemporalCOO.from_dense(p["dense"], pad_multiple=16)
+    JA = JaxCOO.from_dense(p["dense"], dtype=jnp.float32, pad_multiple=16)
+    mesh = make_mesh(1, 1, device=distributed.initialize("cpu"))
+    time_mesh = dataclasses.replace(mesh, shape={"graph": 1, "time": 2})
+    j_family = JEvolveGCN if family is EvolveGCN else JWDGCN
+    with pytest.raises(Exception) as ours:
+        make_sharded_edge_adapter(family(n_slices=8, in_feat=4, hidden_feat=(6, 2)),
+                                  {w: A for w in wins}, {w: p["X"] for w in wins},
+                                  {w: p["edges"] for w in wins}, None, time_mesh)
+    with pytest.raises(Exception) as theirs:
+        j_sharded(j_family(n_slices=8, in_feat=4, hidden_feat=(6, 2)), {w: JA for w in wins},
+                  {w: p["X"] for w in wins}, {w: p["edges"] for w in wins}, None,
+                  j_make_mesh(1, 2, jax.devices()[:2]))
+    assert type(ours.value) is type(theirs.value) is NotImplementedError
+    assert str(ours.value) == str(theirs.value)

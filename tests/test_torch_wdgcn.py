@@ -378,10 +378,27 @@ def test_chess_run_experiment_on_the_cpu(chess):
 
 
 @pytest.mark.parametrize("preset", ["seir_wdgcn_reg", "seir_wdgcn_reg_tuned"])
-def test_unported_wdgcn_tasks_raise(preset):
-    """WD-GCN regression itself runs (tests/test_torch_regression.py), and
-    with checkpoints (tests/test_torch_checkpoint.py); on a device mesh it
-    is not ported yet, with or without checkpoints."""
-    for kwargs in ({"mesh_shape": (2, 1)}, {"mesh_shape": (1, 2), "checkpoint_dir": "ck"}):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tbuild.run_experiment(tpresets.get_preset(preset), device="cpu", **kwargs)
+def test_unported_wdgcn_tasks_raise(preset, tmp_path):
+    """WD-GCN regression on a device mesh: on the 1 x 1 mesh (this process
+    as the world) with checkpoints, a run of 4 epochs resumed to 6 gives
+    the uninterrupted sharded run's train losses and val/test L1 (a chunk's
+    end is a save, so the resumed run is the whole one), and those are the
+    unsharded run's (rtol 1e-3); a mesh larger than this world raises
+    naming its size."""
+    from tmgcn_torch.parallel import distributed
+
+    distributed.initialize("cpu")
+    cfg = dataclasses.replace(tpresets.get_preset(preset), eval_every=2)
+
+    def run(n, **kw):
+        out = tbuild.run_experiment(cfg, n_epochs=n, verbose=False, device="cpu", **kw)
+        return next(iter(out["results"].values()))
+
+    full = run(6, mesh_shape=(1, 1))
+    run(4, mesh_shape=(1, 1), checkpoint_dir=tmp_path)
+    resumed = run(6, mesh_shape=(1, 1), checkpoint_dir=tmp_path)
+    for k, v in full.items():
+        np.testing.assert_array_equal(resumed[k], v, err_msg=k)
+        np.testing.assert_allclose(v, run(6)[k], rtol=1e-3, err_msg=k)
+    with pytest.raises(ValueError, match=r"mesh 1x2 != 1 devices \(the world size\)"):
+        run(1, mesh_shape=(1, 2), checkpoint_dir=tmp_path)

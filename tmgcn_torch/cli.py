@@ -24,8 +24,10 @@
         --data-dir data/chess --mesh graph=2,time=2 --epochs 200
                              # sharded on a (graph x time) mesh, one process per
                              # card (NCCL); with --device cpu, gloo. TM-GCN (1 or 2
-                             # layers) and KW-GCN, edge classification and link
-                             # prediction; rank 0 prints and writes --out
+                             # layers) and KW-GCN on any mesh; EvolveGCN-H and
+                             # WD-GCN on graph=G,time=1; every task (SEIR
+                             # regression too), with or without --checkpoint-dir
+                             # (rank 0 writes); rank 0 prints and writes --out
     python -m tmgcn_torch.cli run chess_tmgcn2_cls --data-dir data/chess \
         --spmm-impl pallas --epochs 1000 --checkpoint-dir ck/
                              # saves after each evaluation epoch (regression: each
@@ -44,9 +46,9 @@ prediction, its (epochs, 9) MAP-MRR rows; for regression, its result dict
 (the per-epoch train losses, val and test L1 and L1 ratio). Checkpoints
 are the port's own files (``train/checkpoint.py``), not the JAX package's
 Orbax directories. ``run --mesh graph=G,time=T`` needs G x T processes
-(``torchrun``), one per card; one card allows only ``graph=1,time=1``. Not
-ported: ``run --mesh`` with EvolveGCN-H, WD-GCN, regression or
-``--checkpoint-dir`` (ROADMAP item 14b), and ``run --debug-nans``.
+(``torchrun``), one per card; one card allows only ``graph=1,time=1``; the
+recurrent families refuse a time axis, as the JAX package does. Not
+ported: ``run --debug-nans``.
 """
 
 from __future__ import annotations

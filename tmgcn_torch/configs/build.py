@@ -369,18 +369,12 @@ def _make_edge_adapter(cfg, model, data, model_edges, link_pred: bool, device,
     )
 
 
-def _check_mesh_run(cfg: ExperimentConfig, checkpoint_dir) -> None:
-    """The sharded runs this port has (ROADMAP item 14a): TM-GCN (1 and 2
-    layers) and KW-GCN, edge classification and link prediction."""
-    if cfg.method not in ("tmgcn", "gcn") or cfg.task == "regression":
+def _check_mesh_run(cfg: ExperimentConfig) -> None:
+    """The JAX package's one refusal of a sharded run (its ``_make_adapter``):
+    an edge task of a method with no sharded adapter."""
+    if cfg.task != "regression" and cfg.method not in ("tmgcn", "gcn", "evolvegcn", "wdgcn"):
         raise NotImplementedError(
-            f"--mesh with method {cfg.method!r} / task {cfg.task!r} is not ported yet "
-            "(ROADMAP queue 1, item 14b: the recurrent graph-axis adapter and sharded "
-            "regression)"
-        )
-    if checkpoint_dir is not None:
-        raise NotImplementedError(
-            "checkpoints under a mesh are not ported yet (ROADMAP queue 1, item 14b)"
+            f"--mesh supports tmgcn/gcn/evolvegcn/wdgcn models, not {cfg.method!r}"
         )
 
 
@@ -396,7 +390,7 @@ def build_experiment(
     adapter on the mesh's device (this rank's)."""
     device = resolve_device(device) if mesh is None else mesh.device
     if mesh is not None:
-        _check_mesh_run(cfg, None)
+        _check_mesh_run(cfg)
     t0 = time.perf_counter()
     data = build_data(cfg, data_dir=data_dir, artifact=artifact)
     t_data = time.perf_counter() - t0
@@ -407,10 +401,15 @@ def build_experiment(
     if cfg.task == "regression":
         # The adapter reads M only for TM-GCN, as the JAX package's does.
         splits = data.reg_targets
-        adapter = make_regression_adapter(
-            build_model(cfg, data.spec.s_train, in_feat), data.adj, data.feats, M=data.M,
-            device=device,
-        )
+        model = build_model(cfg, data.spec.s_train, in_feat)
+        if mesh is None:
+            adapter = make_regression_adapter(model, data.adj, data.feats, M=data.M,
+                                              device=device)
+        else:
+            from tmgcn_torch.parallel.adapter import make_sharded_regression_adapter
+
+            adapter = make_sharded_regression_adapter(
+                model, data.adj, data.feats, data.M if cfg.method == "tmgcn" else None, mesh)
     else:
         if link_pred:
             # The model consumes slices [0, S-1) and predicts the edges of [1, S).
@@ -513,12 +512,14 @@ def run_experiment(
     would have.
 
     ``mesh_shape`` (n_graph, n_time) trains through the sharded (graph x
-    time) path (parallel/adapter.py): TM-GCN (1 or 2 layers) and KW-GCN,
-    edge classification and link prediction, one process per device —
-    under ``torchrun`` each rank calls this, and every rank returns the
-    same rows; without its environment the world is this process alone,
-    so only a 1 x 1 mesh fits. NCCL on ``cuda`` (this rank's card), gloo on
-    ``cpu``.
+    time) path (parallel/adapter.py), one process per device: TM-GCN (1 or
+    2 layers) and KW-GCN on the whole mesh, EvolveGCN-H and WD-GCN over
+    ``graph`` alone (n_time 1), every task. Under ``torchrun`` each rank
+    calls this, and every rank returns the same rows; without its
+    environment the world is this process alone, so only a 1 x 1 mesh
+    fits. NCCL on ``cuda`` (this rank's card), gloo on ``cpu``. With
+    ``checkpoint_dir`` rank 0 alone writes, every rank waits for each save
+    and restores the same file.
     """
     device = resolve_device(device)
     mesh = None
@@ -526,7 +527,7 @@ def run_experiment(
         from tmgcn_torch.parallel import distributed
         from tmgcn_torch.parallel.mesh import make_mesh
 
-        _check_mesh_run(cfg, checkpoint_dir)
+        _check_mesh_run(cfg)
         mesh = make_mesh(*mesh_shape, device=distributed.initialize(device))
     exp = build_experiment(cfg, data_dir, artifact, device, mesh)
     tcfg = train_config(cfg, n_epochs, verbose)
@@ -539,7 +540,8 @@ def run_experiment(
         for alpha in (None,) if cfg.task == "regression" else alphas:
             ck = None
             if checkpoint_dir is not None:
-                ck = RunCheckpointer(Path(checkpoint_dir) / cfg.name / run_tag(tr, alpha))
+                ck = RunCheckpointer(Path(checkpoint_dir) / cfg.name / run_tag(tr, alpha),
+                                     group=mesh.world if mesh is not None else None)
             results[(tr, alpha)] = run_trial(exp, tcfg, alpha, generator, ck)
     t_train = time.perf_counter() - t0
     return {

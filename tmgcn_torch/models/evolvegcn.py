@@ -108,7 +108,15 @@ def evolve_weight_stack(
     bias is added after the recurrent term, in gru_cell's summation order
     (W@Xs + U@H) + B, as the JAX package's scan adds it.
     """
-    S = batched_summaries(cell, X, W0.shape[1])
+    return evolve_from_summaries(cell, batched_summaries(cell, X, W0.shape[1]), W0)
+
+
+def evolve_from_summaries(
+    cell: dict, S: torch.Tensor, W0: torch.Tensor
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """``evolve_weight_stack``'s GRU-only loop on given (T, F, k) summaries
+    (the sharded 2-layer forward takes its layer-2 summaries from a
+    distributed top-k)."""
     pre = {g: torch.matmul(cell[f"W_{g}"], S) for g in _GATES}  # (T, F, k) each
     UZR = torch.cat([cell["U_Z"], cell["U_R"]], dim=0)  # (2F, F)
     BZR = torch.stack([cell["B_Z"], cell["B_R"]])

@@ -33,8 +33,21 @@ or, for layer 2, the shard's own block-dense operator (ops/spmm_blockdense,
 ``torch.matmul``): the JAX package's ``segment_sum`` and XLA block-dense
 dots, no hand-written kernel.
 
-Not ported here (ROADMAP item 14b): the recurrent families (EvolveGCN-H,
-WD-GCN) over the graph axis and the sharded regression adapter.
+The recurrent families (EvolveGCN-H, WD-GCN) recur over time, so they
+shard over ``graph`` only (``n_time`` 1): the features X stay replicated,
+the cached A @ X, the (T, N, F1) embeddings and the edge readout are
+sharded. A step issues no collective for WD-GCN (the LSTM is node-local)
+and none for 1-layer EvolveGCN besides the readout's sum and the gradient
+sum (the GRU's summaries read the replicated X, so every rank evolves the
+same weights); 2-layer EvolveGCN adds a distributed top-k (each shard's
+candidates, gathered over ``graph``) and one all-gather of the hidden
+layer for its layer-2 SpMM.
+
+``make_sharded_regression_adapter``: TM-GCN regression over the whole
+mesh (the cached banded propagation, a node-local head), WD-GCN and
+EvolveGCN-H regression over ``graph``; ``apply`` reassembles the whole
+(T, N) output on every rank, so the unmodified ``run_regression`` trains
+sharded.
 """
 
 from __future__ import annotations
@@ -47,10 +60,18 @@ import torch
 from tmgcn_torch.core.mmatrix import band_offsets
 from tmgcn_torch.core.sparse import TemporalCOO
 from tmgcn_torch.models.common import nonlinearity
-from tmgcn_torch.models.evolvegcn import EvolveGCN
+from tmgcn_torch.models.evolvegcn import (
+    EvolveGCN,
+    EvolveGCNReg,
+    _scores,
+    _top_k,
+    apply_slice_weights,
+    evolve_from_summaries,
+    evolve_weight_stack,
+)
 from tmgcn_torch.models.gcn import KWGCN
-from tmgcn_torch.models.tmgcn import TMGCN, TMGCN2
-from tmgcn_torch.models.wdgcn import WDGCN
+from tmgcn_torch.models.tmgcn import TMGCN, TMGCN2, TMGCNReg
+from tmgcn_torch.models.wdgcn import WDGCN, WDGCNReg, lstm_scan
 from tmgcn_torch.ops import spmm_blockdense
 from tmgcn_torch.parallel import collectives
 from tmgcn_torch.parallel.halo import banded_m_transform_local, local_banded_m
@@ -249,11 +270,6 @@ def _make_step_forward(mesh: Mesh, sc: _ShardCfg):
 def _model_plan(model, n_slices: int, M):
     """(n_layers, nonlin2, m2, m3, M, remap_params) of a supported model;
     the JAX package's refusals, with its messages."""
-    if isinstance(model, (EvolveGCN, WDGCN)):
-        raise NotImplementedError(
-            f"the sharded {type(model).__name__} (graph axis only) is not ported yet "
-            "(ROADMAP queue 1, item 14b)"
-        )
     if isinstance(model, KWGCN):
         # KWGCN = the TM-GCN pipeline with no temporal mixing: the same
         # sharded machinery under an identity M (halo 0 — the banded
@@ -305,11 +321,16 @@ def make_sharded_edge_adapter(
     the same machinery with an identity M, so the banded exchange
     degenerates to a copy with halo 0) over a (graph x time) mesh.
 
+    EvolveGCN and WDGCN shard over ``graph`` alone
+    (``_make_recurrent_sharded_adapter``).
+
     l2_impl selects the per-epoch layer-2 SpMM: "blockdense" (each shard
     applies its own block-dense operator), "gather" (the sorted segment
     sum), or "auto" (block-dense whenever the shards' block tensors move
     fewer bytes than half the tile-gather floor — the JAX package's rule).
     """
+    if isinstance(model, (EvolveGCN, WDGCN)):
+        return _make_recurrent_sharded_adapter(model, adj, feats, edges, mesh, drop_last_slice)
     n_layers, nonlin2, m2, m3, M, remap_params = _model_plan(model, adj["train"].n_slices, M)
     M = np.asarray(M)
     halo = band_offsets(M)[0]
@@ -408,3 +429,308 @@ def make_sharded_edge_adapter(
         return model.init(generator, mesh.device)
 
     return ModelAdapter(init, apply, bundles, mesh.device, train_stats=train_stats)
+
+
+# ---------------------------------------------------------------------------
+# Recurrent families (EvolveGCN-H, WD-GCN) over the graph axis (the JAX
+# package's tmgcn_tpu/parallel/adapter.py:572-830).
+# ---------------------------------------------------------------------------
+
+
+def _recurrent_window(A: TemporalCOO, X: np.ndarray, mesh: Mesh, layer2: bool) -> tuple[dict, int]:
+    """This rank's tensors of one window for the graph-only families: its
+    row block of every slice as one sorted stream whose columns index the
+    replicated (T, N) feature rows, X whole, and with ``layer2`` the same
+    entries' columns into the graph-gathered (T, N_pad) hidden rows
+    ("l2_cols"). Returns (bundle, n_local_rows)."""
+    A_sh = partition_rows(A, mesh.n_graph)
+    T = A.n_slices
+    rows, cols, vals = shard_stream(A_sh, 0, T, mesh.g, A.n_nodes)
+    dev = mesh.device
+    # float32: the JAX package's default float (x64 off).
+    bundle = {
+        "rows": torch.as_tensor(rows, device=dev),
+        "cols": torch.as_tensor(cols, device=dev),
+        "vals": torch.as_tensor(vals, dtype=torch.float32, device=dev),
+        "X": torch.as_tensor(X, dtype=torch.float32, device=dev),
+    }
+    if layer2:
+        n_pad = A_sh.n_local_rows * mesh.n_graph
+        bundle["l2_cols"] = torch.as_tensor(shard_stream(A_sh, 0, T, mesh.g, n_pad)[1],
+                                            device=dev)
+    return bundle, A_sh.n_local_rows
+
+
+@torch.no_grad()
+def _recurrent_propagate(bundle: dict, n_local_rows: int) -> torch.Tensor:
+    """(T, N_loc, F0): this rank's rows of the per-slice A @ X, X replicated."""
+    T, N, F0 = bundle["X"].shape
+    out = local_spmm(bundle, bundle["X"].reshape(T * N, F0), T * n_local_rows)
+    return out.reshape(T, n_local_rows, F0)
+
+
+def _wdgcn_embed(model, p: dict, b: dict, AX: torch.Tensor) -> torch.Tensor:
+    """WD-GCN's (T, N_loc, F1) LSTM outputs of this rank's rows: the LSTM is
+    node-local, so it needs no collective."""
+    AX = AX.to(model.dtype)  # reference f32 buffer truncation
+    Y = torch.relu(torch.matmul(AX, p["W"].to(AX.dtype)))
+    return lstm_scan(p["lstm"], b["h_init"], b["c_init"], Y)
+
+
+def _distributed_summaries(H1: torch.Tensor, p2: torch.Tensor, k2: int, n_real: int,
+                           mesh: Mesh) -> torch.Tensor:
+    """(T, F1, k2): the layer-2 GRU inputs summarize(H1_t, p2, k2)^T of the
+    graph-sharded (T, N_loc, F1) hidden rows, as ``jax.lax.top_k`` orders
+    the whole rows.
+
+    Each shard takes its k_loc = min(k2, N_loc) best rows (padding rows,
+    global id >= ``n_real``, scored -inf) in ``_top_k``'s order; the
+    candidates' values and rows (one float gather) and global ids (one
+    integer gather) go over ``graph``; every rank then orders the G·k_loc
+    candidates by (-value, global id) with two stable sorts and keeps the
+    first k2. Every global winner is among its shard's candidates, so
+    this is the single-device top-k, equal scores in index order. The
+    summaries feed this rank's own rows (S2 -> W2s -> its layer-2 rows), so
+    the float gather takes the summing backward rule.
+    """
+    T, N_loc, F1 = H1.shape
+    y = _scores(H1, p2)  # (T, N_loc)
+    ids = mesh.g * N_loc + torch.arange(N_loc, device=H1.device)
+    y = torch.where(ids < n_real, y, torch.full((), -torch.inf, dtype=y.dtype, device=y.device))
+    k_loc = min(k2, N_loc)
+    top_y, idx = _top_k(y, k_loc)  # (T, k_loc)
+    cand = H1.gather(1, idx[..., None].expand(-1, -1, F1)).to(top_y.dtype)
+    G = mesh.n_graph
+    packed = collectives.all_gather(torch.cat([top_y[..., None], cand], dim=-1), mesh.graph_group)
+    packed = packed.permute(1, 0, 2, 3).reshape(T, G * k_loc, 1 + F1)
+    ids_c = collectives.all_gather(ids[idx], mesh.graph_group).permute(1, 0, 2).reshape(T, -1)
+    order = torch.argsort(ids_c, dim=-1, stable=True)
+    by_value = torch.sort(packed[..., 0].gather(-1, order), dim=-1, descending=True, stable=True)
+    order = order.gather(-1, by_value.indices)[:, :k2]
+    picked = packed.gather(1, order[..., None].expand(-1, -1, 1 + F1))  # (T, k2, 1 + F1)
+    return (picked[..., 1:] * picked[..., :1]).transpose(1, 2)
+
+
+def _evolvegcn_embed(model, p: dict, inits: tuple, bundle: dict, n_real: int,
+                     mesh: Mesh) -> tuple[torch.Tensor, tuple]:
+    """EvolveGCN-H's (T, N_loc, F) embeddings of this rank's rows and the
+    evolved final weights (replicated). Layer 1's summaries read the
+    replicated X, so every rank evolves the same W1s with no collective;
+    layer 2 takes its summaries from ``_distributed_summaries`` and
+    all-gathers the hidden rows once for its SpMM."""
+    AX = bundle["cached_ax"]
+    W_fin, W1s = evolve_weight_stack(p["cell1"], bundle["X"], inits[0])
+    if model.n_layers == 1:
+        return apply_slice_weights(AX, W1s).to(model.store_dtype), (W_fin,)
+    H1 = torch.relu(apply_slice_weights(AX, W1s))
+    S2 = _distributed_summaries(H1, p["cell2"]["p"], inits[1].shape[1], n_real, mesh)
+    W2_fin, W2s = evolve_from_summaries(p["cell2"], S2, inits[1])
+    T, N_loc, F1 = H1.shape
+    H1_rows = collectives.all_gather(H1, mesh.graph_group)  # (G, T, N_loc, F1)
+    H1_rows = H1_rows.permute(1, 0, 2, 3).reshape(-1, F1)
+    Z = local_spmm(bundle, H1_rows, T * N_loc, cols="l2_cols").reshape(T, N_loc, F1)
+    return apply_slice_weights(Z, W2s).to(model.store_dtype), (W_fin, W2_fin)
+
+
+def _graph_only(mesh: Mesh, what: str) -> None:
+    """The JAX package's refusal of a time axis for a recurrent family."""
+    if mesh.n_time != 1:
+        raise NotImplementedError(
+            f"{what} recur over time; shard over graph only "
+            f"(--mesh {mesh.n_graph * mesh.n_time}x1), got n_time={mesh.n_time}"
+        )
+
+
+def _make_recurrent_sharded_adapter(
+    model,
+    adj: dict[str, TemporalCOO],
+    feats: dict[str, np.ndarray],
+    edges: dict[str, np.ndarray],
+    mesh: Mesh,
+    drop_last_slice: bool,
+) -> ModelAdapter:
+    """EvolveGCN-H (1 or 2 layers) and WD-GCN over ``graph`` (n_time 1).
+
+    A bundle holds this rank's row block of the window's adjacency, the
+    replicated X, the cached A @ X of its rows and its edge bucket (every
+    labelled edge: one time shard). ``apply`` returns the (E, C) logits in
+    edge order, the same on every rank, and EvolveGCN's evolved final
+    weights as the carry (``()``: the frozen W_init buffers). There is no
+    ``train_stats``: the loops' plain epochs run ``apply``, as the JAX
+    package's do.
+    """
+    _graph_only(mesh, "EvolveGCN/WD-GCN")
+    evolve = isinstance(model, EvolveGCN)
+    if evolve and model.n_layers not in (1, 2):
+        raise NotImplementedError("sharded EvolveGCN supports 1 or 2 layers")
+
+    bundles = {}
+    n_local_rows = None
+    for w in WINDOWS:
+        A, X = adj[w], np.asarray(feats[w])
+        if drop_last_slice:
+            A = A.slice_window(0, A.n_slices - 1)
+            X = X[:-1]
+        bundle, n_loc = _recurrent_window(A, X, mesh, evolve and model.n_layers == 2)
+        if w == "train":
+            n_local_rows = n_loc
+        e_b, e_mask, e_pos = bucket_edges_by_time(edges[w], A.n_slices, 1)
+        bundle.update(
+            edges_b=torch.as_tensor(e_b[0], dtype=torch.long, device=mesh.device),
+            mask=torch.as_tensor(e_mask[0], device=mesh.device),
+            pos=torch.as_tensor(e_pos, device=mesh.device),
+            n_edges=int(np.asarray(edges[w]).shape[1]),
+        )
+        # The parameter-independent A @ X of this rank's rows, cached (the
+        # single-device adapters cache the same).
+        bundle["cached_ax"] = _recurrent_propagate(bundle, n_loc)
+        if not evolve:
+            del bundle["X"]  # WD-GCN reads only A @ X
+        bundles[w] = bundle
+    n_real = adj["train"].n_nodes
+
+    def readout(Y: torch.Tensor, U: torch.Tensor, bundle: dict) -> torch.Tensor:
+        flat = Y.reshape(-1, Y.shape[-1])
+        logits = readout_partitioned(flat, bundle["edges_b"], bundle["mask"], U.to(flat.dtype),
+                                     n_local_rows, mesh)
+        return logits.index_select(0, bundle["pos"])
+
+    def init(generator):
+        return model.init(generator, mesh.device)
+
+    if not evolve:
+
+        def apply(variables, bundle, carry):
+            p = collectives.copy_params(variables["params"], mesh.world)
+            b = variables["buffers"]
+            Z = _wdgcn_embed(model, p, b, bundle["cached_ax"])
+            return readout(Z, b["U"], bundle), carry  # U: frozen, never trained
+
+        return ModelAdapter(init, apply, bundles, mesh.device)
+
+    names = ("W_init1", "W_init2")[: model.n_layers]
+
+    def initial_carry(variables):
+        return tuple(variables["buffers"][k] for k in names)
+
+    def apply(variables, bundle, carry):
+        p = collectives.copy_params(variables["params"], mesh.world)
+        inits = carry if carry else initial_carry(variables)
+        Y, finals = _evolvegcn_embed(model, p, inits, bundle, n_real, mesh)
+        return readout(Y, p["U"], bundle), finals
+
+    return ModelAdapter(init, apply, bundles, mesh.device, initial_carry)
+
+
+# ---------------------------------------------------------------------------
+# Regression (the SEIR task): the (T, N) node outputs (the JAX package's
+# tmgcn_tpu/parallel/adapter.py:833-992).
+# ---------------------------------------------------------------------------
+
+
+def _window_shapes(adj: dict[str, TemporalCOO]) -> tuple[int, int]:
+    """(T, N), the same in every window (same_block_size)."""
+    shapes = {(adj[w].n_slices, adj[w].n_nodes) for w in WINDOWS}
+    if len(shapes) != 1:
+        raise NotImplementedError(f"windows differ in shape: {sorted(shapes)}")
+    return shapes.pop()
+
+
+def _assemble(out: torch.Tensor, mesh: Mesh, T: int, N: int) -> torch.Tensor:
+    """The whole (T, N) output on every rank from this rank's (T_loc, N_loc)
+    block: gathered over ``graph`` (and ``time``), cut to [:T, :N]. The loss
+    reads the whole output on every rank, a replicated consumer, so each
+    gather's backward takes this rank's slice and sums nothing
+    (``collectives.gather_from``); ``copy_params`` then sums the
+    parameters' gradient over the world."""
+    rows = collectives.gather_from(out, mesh.graph_group)  # (G, T_loc, N_loc)
+    rows = rows.permute(1, 0, 2).reshape(out.shape[0], -1)
+    if mesh.n_time > 1:
+        rows = collectives.gather_from(rows, mesh.time_group).reshape(-1, rows.shape[1])
+    return rows[:T, :N]
+
+
+def _head(p: dict, Y: torch.Tensor) -> torch.Tensor:
+    """The per-node linear regression head: (..., F1) -> (...)."""
+    out = torch.matmul(Y, p["lin_w"].to(Y.dtype)) + p["lin_b"].to(Y.dtype)
+    return out[..., 0]
+
+
+def make_sharded_regression_adapter(
+    model,
+    adj: dict[str, TemporalCOO],
+    feats: dict[str, np.ndarray],
+    M: np.ndarray | None,
+    mesh: Mesh,
+) -> ModelAdapter:
+    """Sharded drop-in for tasks.adapters.make_regression_adapter, on this
+    rank.
+
+    TMGCNReg (condensed_W, without M⁻¹) over the whole (graph x time)
+    mesh: the cached banded propagation of this rank's block, as the edge
+    adapter caches it, and a node-local head. WDGCNReg and EvolveGCNReg
+    over ``graph``: the cached A @ X of this rank's rows, the LSTM or the
+    weights evolved from the replicated X. ``apply`` returns the whole
+    (T, N) output on every rank and the carry unchanged (EvolveGCNReg
+    evolves from ``carry[0]`` when given, else from W_init1).
+    """
+    T, N = _window_shapes(adj)
+
+    def init(generator):
+        return model.init(generator, mesh.device)
+
+    if isinstance(model, TMGCNReg):
+        if model.use_Minv or not model.condensed_W:
+            raise NotImplementedError("sharded TMGCNReg supports condensed_W without Minv")
+        M = np.asarray(M)
+        halo = band_offsets(M)[0]
+        bundles = {}
+        for w in WINDOWS:
+            bundles[w], _, A_sh = _prepare_banded_window(adj[w], np.asarray(feats[w]), M, mesh,
+                                                         halo)
+        sc = _ShardCfg(n_local_rows=A_sh.n_local_rows, halo=halo, n_layers=1, nonlin2="relu",
+                       dtype=model.dtype)
+        propagate = _make_propagate(mesh, sc)
+        for b in bundles.values():
+            b["cached"] = propagate(b)
+            del b["X"]
+        dtype = model.dtype
+
+        def apply(variables, bundle, carry):
+            p = collectives.copy_params(variables["params"], mesh.world)
+            H = bundle["cached"].to(dtype)  # reference f32 buffer truncation
+            Y = torch.matmul(H, p["W"].to(dtype))
+            return _assemble(_head(p, Y), mesh, T, N), carry
+
+        return ModelAdapter(init, apply, bundles, mesh.device)
+
+    if not isinstance(model, (EvolveGCNReg, WDGCNReg)):
+        raise TypeError(f"unsupported regression model: {type(model).__name__}")
+    _graph_only(mesh, "EvolveGCNReg/WDGCNReg")
+
+    bundles = {}
+    for w in WINDOWS:
+        bundles[w], n_local_rows = _recurrent_window(adj[w], np.asarray(feats[w]), mesh, False)
+        bundles[w]["cached_ax"] = _recurrent_propagate(bundles[w], n_local_rows)
+
+    if isinstance(model, WDGCNReg):
+        for b in bundles.values():
+            del b["X"]
+
+        def apply(variables, bundle, carry):
+            p = collectives.copy_params(variables["params"], mesh.world)
+            Z = _wdgcn_embed(model, p, variables["buffers"], bundle["cached_ax"])
+            return _assemble(_head(p, Z), mesh, T, N), carry
+
+        return ModelAdapter(init, apply, bundles, mesh.device)
+
+    def apply(variables, bundle, carry):
+        # The GRU's summaries read the replicated X, so the evolved weights
+        # are the same on every rank with no collective.
+        p = collectives.copy_params(variables["params"], mesh.world)
+        W0 = carry[0] if carry else variables["buffers"]["W_init1"]
+        _, Ws = evolve_weight_stack(p["cell1"], bundle["X"], W0)
+        Y = apply_slice_weights(bundle["cached_ax"], Ws).to(model.store_dtype)
+        return _assemble(_head(p, Y), mesh, T, N), carry
+
+    return ModelAdapter(init, apply, bundles, mesh.device)

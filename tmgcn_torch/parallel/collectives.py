@@ -27,8 +27,11 @@ the one rule that gloo and NCCL both run in every PyTorch 2 release).
 ``torch.distributed.nn.functional``'s ``all_reduce``/``all_gather`` are not
 the first two rules: they sum G (or T) identical gradients.
 
-``CALLS`` counts the collectives issued from Python, by kind (a captured
-step issues its collectives once, at capture: count an eager step).
+``CALLS`` counts the collectives issued from Python, by kind, and
+``ISSUED`` by (kind, group size, buffer bytes): an all-reduce's buffer, an
+all-gather's gathered result (a captured step issues its collectives once,
+at capture: count an eager step). ``utils/comm_model`` reckons ``ISSUED``
+from a workload's shape.
 """
 
 from __future__ import annotations
@@ -39,18 +42,24 @@ import torch
 import torch.distributed as dist
 
 CALLS: collections.Counter = collections.Counter()
+ISSUED: collections.Counter = collections.Counter()
+
+
+def _count(kind: str, n: int, nbytes: int) -> None:
+    CALLS[kind] += 1
+    ISSUED[(kind, n, nbytes)] += 1
 
 
 def all_reduce_(x: torch.Tensor, group) -> torch.Tensor:
     """In-place sum over ``group``, outside autograd."""
-    CALLS["all_reduce"] += 1
+    _count("all_reduce", dist.get_world_size(group), x.numel() * x.element_size())
     dist.all_reduce(x, group=group)
     return x
 
 
 def _gather(x: torch.Tensor, group) -> torch.Tensor:
-    CALLS["all_gather"] += 1
     n = dist.get_world_size(group)
+    _count("all_gather", n, n * x.numel() * x.element_size())
     # Concatenated along the leading axis (the layout gloo and NCCL both take).
     out = torch.empty((n * x.shape[0],) + tuple(x.shape[1:]), dtype=x.dtype, device=x.device)
     dist.all_gather_into_tensor(out, x.contiguous(), group=group)
@@ -125,8 +134,25 @@ def all_gather(x: torch.Tensor, group) -> torch.Tensor:
     return _AllGather.apply(x, group)
 
 
+def _leaf_paths(tree: dict, prefix: tuple = ()):
+    """(key path, tensor) of every leaf of a nested dict, keys sorted."""
+    for k in sorted(tree):
+        v = tree[k]
+        if isinstance(v, dict):
+            yield from _leaf_paths(v, prefix + (k,))
+        else:
+            yield prefix + (k,), v
+
+
 def copy_params(params: dict, group) -> dict:
-    """The same parameters, whose gradients are summed over ``group`` in
-    the backward (one flat all-reduce for all of them)."""
-    keys = sorted(params)
-    return dict(zip(keys, _CopyParams.apply(group, *(params[k] for k in keys))))
+    """The same parameters (a dict, nested as WD-GCN's ``lstm`` and
+    EvolveGCN's GRU cells nest), whose gradients are summed over ``group``
+    in the backward (one flat all-reduce for all of them)."""
+    paths, leaves = zip(*_leaf_paths(params))
+    out: dict = {}
+    for path, leaf in zip(paths, _CopyParams.apply(group, *leaves)):
+        node = out
+        for k in path[:-1]:
+            node = node.setdefault(k, {})
+        node[path[-1]] = leaf
+    return out

@@ -70,21 +70,28 @@ def factorize(n: int, n_graph: int | None = None, n_time: int | None = None) -> 
 
 
 def make_mesh(n_graph: int | None = None, n_time: int | None = None,
-              device: str | torch.device = "cpu") -> Mesh:
+              device: str | torch.device = "cpu", n_ranks: int | None = None) -> Mesh | None:
     """Build the (graph, time) mesh over the world (``distributed.initialize``
     first): G * T must be the world size. Every rank makes every group, in
     the same order, and runs one collective on each of its own, so that
-    NCCL's communicators exist before a CUDA graph captures a step."""
+    NCCL's communicators exist before a CUDA graph captures a step.
+
+    ``n_ranks``: the mesh over the world's first ``n_ranks`` ranks alone
+    (``utils/scaling_bench``'s 1, 2 and 4 of 4); every rank of the world
+    calls this, and the others get None."""
     device = torch.device(device)
     if device.type == "cuda" and n_graph is not None and n_time is not None:
         n_cards = torch.cuda.device_count()
         if n_graph * n_time > n_cards:
             raise ValueError(f"mesh {n_graph}x{n_time} needs {n_graph * n_time} GPUs, one "
                              f"per process; {n_cards} visible")
-    world = dist.get_world_size()
-    G, T = factorize(world, n_graph, n_time)
+    size = dist.get_world_size() if n_ranks is None else n_ranks
+    G, T = factorize(size, n_graph, n_time)
     rank = dist.get_rank()
     g, t = divmod(rank, T)
+    world = dist.group.WORLD
+    if n_ranks is not None:
+        world = dist.new_group(list(range(n_ranks)), timeout=TIMEOUT)
     graph_group = time_group = None
     for ti in range(T):
         group = dist.new_group([gi * T + ti for gi in range(G)], timeout=TIMEOUT)
@@ -94,8 +101,9 @@ def make_mesh(n_graph: int | None = None, n_time: int | None = None,
         group = dist.new_group([gi * T + ti for ti in range(T)], timeout=TIMEOUT)
         if gi == g:
             time_group = group
-    mesh = Mesh({GRAPH_AXIS: G, TIME_AXIS: T}, g, t, device, dist.group.WORLD,
-                graph_group, time_group)
+    if rank >= size:
+        return None
+    mesh = Mesh({GRAPH_AXIS: G, TIME_AXIS: T}, g, t, device, world, graph_group, time_group)
     for group in (mesh.world, graph_group, time_group):
         dist.all_reduce(torch.zeros(1, device=device), group=group)
     return mesh

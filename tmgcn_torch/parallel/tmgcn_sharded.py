@@ -173,10 +173,15 @@ def readout_partitioned(flat: torch.Tensor, edges_b: torch.Tensor, mask: torch.T
     """
     F1 = flat.shape[-1]
     n0 = mesh.g * n_local_rows
+    # An endpoint this shard does not own reads a row whose value it then
+    # zeroes: edge e reads row e mod rows, not row 0. The gather's backward
+    # (a sorted accumulate) sums each row's duplicates one after another,
+    # so one shared row would serialize (G - 1)/G of the bucket.
+    spread = torch.arange(edges_b.shape[1], device=flat.device) % flat.shape[0]
 
     def side(nodes, Upart):
         own = mask & (nodes >= n0) & (nodes < n0 + n_local_rows)
-        idx = torch.where(own, edges_b[0] * n_local_rows + (nodes - n0), 0)
+        idx = torch.where(own, edges_b[0] * n_local_rows + (nodes - n0), spread)
         rows = torch.where(own[:, None], flat[idx], torch.zeros((), dtype=flat.dtype,
                                                                 device=flat.device))
         return rows @ Upart

@@ -11,6 +11,11 @@ written under a temporary name and moved into place with ``os.replace``:
 a crash mid-save leaves the previous checkpoint readable, and the
 temporary file is never taken for a checkpoint.
 
+Under a device mesh (``group``, the run's process group) the parameters,
+optimizer state and rows are the same on every rank: the group's rank 0
+alone writes, every rank waits at a barrier after each save, and every rank
+restores the same newest file.
+
 The format is the port's own: it neither reads nor writes the JAX
 package's Orbax directories, and ``opt_state`` is the port's optimizer
 state (``train.loop._Optimizer.state_dict``), not an optax tree.
@@ -24,6 +29,7 @@ from pathlib import Path
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 _NAME = re.compile(r"ckpt_(\d+)\.pt")
 
@@ -52,14 +58,22 @@ def _cast(template, tree):
 
 
 class RunCheckpointer:
-    """Save and restore one run's training state under a directory."""
+    """Save and restore one run's training state under a directory.
 
-    def __init__(self, directory: str | Path, max_to_keep: int = 3):
+    ``group``: the process group of a sharded run (``torch.distributed``),
+    or None for a run of one process."""
+
+    def __init__(self, directory: str | Path, max_to_keep: int = 3, group=None):
         self._dir = Path(directory).absolute()
-        self._dir.mkdir(parents=True, exist_ok=True)
         self.max_to_keep = max_to_keep
+        self.group = group
+        self.writes = group is None or dist.get_rank(group) == 0
+        if self.writes:
+            self._dir.mkdir(parents=True, exist_ok=True)
 
     def _epochs(self) -> list[int]:
+        if not self._dir.is_dir():
+            return []
         return sorted(int(m.group(1)) for p in self._dir.iterdir()
                       if (m := _NAME.fullmatch(p.name)))
 
@@ -71,7 +85,15 @@ class RunCheckpointer:
         """Write epoch ``epoch``'s state, then drop all but the
         ``max_to_keep`` newest. ``buffers``: the frozen model buffers (e.g.
         WD-GCN's untrained U), so inference restores a whole model without
-        replaying the run's draws."""
+        replaying the run's draws. Under a mesh rank 0 writes and every
+        rank returns after it has."""
+        if self.writes:
+            self._write(epoch, params, opt_state, results, buffers)
+        if self.group is not None:
+            dist.barrier(group=self.group)
+
+    def _write(self, epoch: int, params: dict, opt_state: dict, results: np.ndarray,
+               buffers: dict | None) -> None:
         state = {
             "epoch": epoch,
             "params": _to_cpu(params),

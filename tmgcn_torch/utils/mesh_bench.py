@@ -4,21 +4,26 @@ process per card.
     torchrun --standalone --nproc-per-node 4 -m tmgcn_torch.utils.mesh_bench \\
         --mesh graph=2,time=2 [PRESET ...] [--epochs 200] [--device cpu]
 
-For each preset (default chess_tmgcn_cls and chess_tmgcn2_cls, their data
-in data/chess) every rank builds the sharded experiment and the unsharded
-one on its own card, then:
+For each preset (default chess_tmgcn_cls and chess_tmgcn2_cls, the chess
+data in data/chess; any preset the mesh shards: the recurrent families on
+a graph-only mesh, the SEIR regression presets generated) every rank builds
+the sharded experiment and the unsharded one on its own card, then:
 
   * rows: a run of ``--epochs`` epochs sharded (the loop users run) and
     unsharded; the largest relative train-loss difference and the largest
-    F1 difference, and whether every rank returned the same rows;
+    F1 (LP: MAP, MRR) difference, or for regression the largest relative
+    difference of the train losses and of val/test L1 and L1 ratio; and
+    whether every rank returned the same rows;
   * warm ms per epoch of the sharded run (host clock, the slowest rank);
   * ms per plain epoch, sharded captured and eager and unsharded captured:
     rounds of a fixed number of epochs that every rank runs in step (a
     barrier before each; the slowest rank's seconds), median of 5;
   * a traced captured chunk of 21 plain epochs: rank 0's device ms per
     epoch, busy share, and its NCCL kernels' count and device ms per epoch;
-  * the collectives one evaluation step and one plain step issue, and the
-    set-up seconds (the mesh's groups, data, adapter).
+  * the collectives one evaluation step and one plain step issue (by kind,
+    and by kind, group size and buffer bytes: ``utils/comm_model`` reckons
+    their NCCL time from these), and the set-up seconds (the mesh's groups,
+    data, adapter).
 
 Rank 0 prints the card's name and power limit, a line per preset and one
 JSON object last. Needs as many cards as processes with ``cuda`` (the
@@ -48,10 +53,11 @@ DATA_DIR = "data/chess"
 ROUNDS = 5
 
 
-def _slowest(seconds: float, device: torch.device) -> float:
-    """The largest of every rank's ``seconds``."""
+def _slowest(seconds: float, device: torch.device, group=None) -> float:
+    """The largest of every rank's ``seconds`` (of ``group``, default the
+    world)."""
     t = torch.tensor([seconds], dtype=torch.float64, device=device)
-    dist.all_reduce(t, op=dist.ReduceOp.MAX)
+    dist.all_reduce(t, op=dist.ReduceOp.MAX, group=group)
     return float(t)
 
 
@@ -74,7 +80,11 @@ def _rounds(run, n: int, device: torch.device) -> dict:
             "epochs_a_round": n, "rounds": ROUNDS}
 
 
-def _rows_diff(got: np.ndarray, ref: np.ndarray, lp: bool) -> dict:
+def _rows_diff(got, ref, lp: bool) -> dict:
+    if isinstance(ref, dict):  # regression: run_regression's result dicts
+        rel = {k: float(np.max(np.abs(np.asarray(got[k]) - v) / np.abs(v)))
+               for k, v in ref.items()}
+        return {"loss_max_rtol": rel.pop("train_loss"), "l1_max_rtol": max(rel.values())}
     loss = 2 if lp else 3
     rel = np.abs(got[:, loss] - ref[:, loss]) / np.abs(ref[:, loss])
     rates = [0, 1, 3, 4, 6, 7] if lp else [2, 6, 10]
@@ -84,13 +94,20 @@ def _rows_diff(got: np.ndarray, ref: np.ndarray, lp: bool) -> dict:
             "rates_nan_alike": same_nan}
 
 
+def _same_rows(a, b) -> bool:
+    if isinstance(b, dict):
+        return a.keys() == b.keys() and all(np.array_equal(a[k], b[k], equal_nan=True)
+                                            for k in b)
+    return np.array_equal(a, b, equal_nan=True)
+
+
 def bench_preset(name: str, mesh, epochs: int, n_round: int) -> dict:
     cfg = get_preset(name)
     device = mesh.device
     exp = build_experiment(cfg, DATA_DIR, device=device, mesh=mesh)
     plain = build_experiment(cfg, DATA_DIR, device=device)
     tcfg = train_config(cfg, epochs)
-    alpha = cfg.alpha_vec[0]
+    alpha = None if cfg.task == "regression" else cfg.alpha_vec[0]
     lp = cfg.task == "link_pred"
 
     def gen():
@@ -105,15 +122,17 @@ def bench_preset(name: str, mesh, epochs: int, n_round: int) -> dict:
     ref = run_trial(plain, tcfg, alpha, gen())
     every = [None] * dist.get_world_size()
     dist.all_gather_object(every, rows)
-    same = all(np.array_equal(r, rows, equal_nan=True) for r in every)
+    same = all(_same_rows(r, rows) for r in every)
 
     chunks = trial_chunks(exp, train_config(cfg), alpha, gen())
-    eager = loop._EagerChunks(chunks.step, chunks.plain.step)
-    calls = {}
+    eager = loop._EagerChunks(chunks.step, chunks.plain and chunks.plain.step)
+    calls, issued = {}, {}
     for what, plain_step in (("evaluation step", False), ("plain step", True)):
         collectives.CALLS.clear()
+        collectives.ISSUED.clear()
         eager(1, plain=plain_step)
         calls[what] = dict(collectives.CALLS)
+        issued[what] = [[list(k), v] for k, v in sorted(collectives.ISSUED.items())]
 
     def runner(e, eager=False):
         return profile_slice.chunk_runner(e, train_config(cfg), alpha, gen(), eager)
@@ -123,7 +142,7 @@ def bench_preset(name: str, mesh, epochs: int, n_round: int) -> dict:
              "unsharded captured": _rounds(runner(plain), n_round, device)}
     out = {"preset": name, "epochs": epochs, "rows": _rows_diff(rows, ref, lp),
            "rows_equal_on_every_rank": same, "warm_ms_per_epoch": 1e3 * warm / epochs,
-           "collectives": calls, "plain_epoch": times,
+           "collectives": calls, "collectives_issued": issued, "plain_epoch": times,
            "setup_s": {"data": exp.seconds["data"], "adapter": exp.seconds["adapter"],
                        "unsharded_adapter": plain.seconds["adapter"]}}
     if device.type == "cuda":
