@@ -7,7 +7,8 @@ Run from the root of a checkout. Phases, in order; any failure exits
 non-zero, and nothing falls back to the CPU:
 
   1. card    — the card's name and power limit, as nvidia-smi gives them;
-  2. build   — compile every CUDA kernel from tmgcn_torch/kernels/csrc;
+  2. build   — compile every CUDA kernel from tmgcn_torch/kernels/csrc, and
+               beside them the native host runtime (tmgcn_torch/native);
   3. K1      — the windowed segment matmul against its plain PyTorch
                version on the card: random packings (F = 2, 6, 128, with
                and without init, with empty windows), the chess
@@ -234,6 +235,39 @@ non-zero, and nothing falls back to the CPU:
                   rtol 1e-3); chess_tmgcn_cls at 1 x 1 with checkpoints,
                   101 epochs saving at 0 and 100, resumed to 200: train
                   columns bitwise the uninterrupted sharded run's;
+               r. the 32 presets of the registry's other datasets
+                  (bitcoin_otc, bitcoin_alpha, reddit, amlsim edge
+                  classification; bitcoin_otc, bitcoin_alpha, reddit, uci
+                  link prediction; TM-GCN, KW-GCN, EvolveGCN-H, WD-GCN) on
+                  copies of their stand-ins in data/synthetic/ under build/,
+                  at the presets' widths and windows, 200 epochs at the first
+                  alpha, TM-GCN and KW-GCN on "pallas": each experiment built
+                  with the native host runtime (tmgcn_torch/native), counted
+                  with its run (K1: 3 at set-up; uci_tmgcn_lp's full-row
+                  layer 2 3 a step and 2 an evaluation, 607; WD-GCN 200, the
+                  readout plan's backward; EvolveGCN-H none, gather-free;
+                  each family's operator checked apart), the TM-GCN presets
+                  (a dataset's first, so each parses, samples and packs)
+                  again with the numpy plain versions (set-up seconds side
+                  by side, the same data and K1 packings); the eager loop on
+                  the same adapter (all 200 epochs; the recurrent families
+                  their first 20, the phase's one cut: rows bitwise,
+                  launches exact); the first 5 epochs against the CPU's
+                  plain path, computed in a process of its own while the
+                  card runs (losses rtol 1e-4, F1 within 1e-3 or
+                  EvolveGCN-H's tie range, MAP/MRR rtol 1e-3);
+                  uci_tmgcn_lp diverges, as the JAX package does from the
+                  same variables: its loss finite up to one epoch and
+                  non-finite after; one preset per (family, task) timed captured
+                  against eager in turns; K1 at uci_tmgcn_lp's full-row
+                  layer 2, forward and transposed, against its plain version
+                  and torch.sparse.mm beside its bound; ``cli run
+                  bitcoin_otc_tmgcn_cls --epochs 20`` over its 21 alphas
+                  (seconds per alpha, graph captures per sweep); ``cli run
+                  seir_tmgcn_reg --debug-nans`` in a subprocess beside the
+                  paths (exit non-zero, FloatingPointError) and ``cli run
+                  chess_tmgcn_cls --debug-nans --epochs 20`` (exit 0, the
+                  rows of the run without the flag);
   8. capture — chess_tmgcn_cls (pallas), chess_tmgcn2_cls (pallas and the
                preset's jnp), chess_wdgcn_cls, chess_wdgcn_lp,
                chess_evolvegcn_cls, chess_evolvegcn2_cls,
@@ -260,6 +294,7 @@ import functools
 import gc
 import json
 import os
+import pickle
 import signal
 import statistics
 import subprocess
@@ -319,6 +354,31 @@ MESH_RECURRENT_PRESETS = (
     "seir_tmgcn_reg_tuned", "seir_wdgcn_reg_tuned", "seir_evolvegcn_reg_tuned",
 )
 MESH_RECURRENT_EPOCHS = 50
+# Phase 7r: the 32 presets of the registry's other datasets, on copies of
+# their in-repo stand-ins (data/synthetic/<name>/) under the build directory
+# git ignores, at the presets' widths and windows; 10,000 epochs (LP 1,000)
+# cut to 200 at the preset's eval_every (evaluations at 0 and 100). The
+# recurrent families' eager reference runs their first REGISTRY_EAGER_EPOCHS
+# (an eager epoch of 30-75 ms); TM-GCN and KW-GCN run "pallas", so K1 runs at
+# their packings. The CPU references run in a process of their own with
+# REGISTRY_CPU_THREADS threads while the card runs the phase.
+REGISTRY_DATASETS = ("bitcoin_otc", "bitcoin_alpha", "reddit", "amlsim", "uci")
+REGISTRY_DIR = "build/chip_smoke_registry"
+REGISTRY_EPOCHS = 200
+REGISTRY_EAGER_EPOCHS = 20
+REGISTRY_CPU_THREADS = 4
+REGISTRY_CPU_TIMEOUT_S = 600
+# Timed captured against eager: one preset per (family, task).
+REGISTRY_TIMED = ("bitcoin_otc_tmgcn_cls", "amlsim_gcn_cls", "bitcoin_alpha_evolvegcn_cls",
+                  "reddit_wdgcn_cls", "uci_tmgcn_lp", "bitcoin_alpha_gcn_lp",
+                  "reddit_evolvegcn_lp", "uci_wdgcn_lp")
+# Diverges within 200 epochs (lr 0.01 on the 2-layer TM-GCN with M^2 and
+# M^3): from the same variables both packages' losses pass 1e12 at epoch 5
+# on the CPU (tests/test_torch_registry_uci_divergence.py).
+REGISTRY_DIVERGING = ("uci_tmgcn_lp",)
+SWEEP_PRESET, SWEEP_EPOCHS = "bitcoin_otc_tmgcn_cls", 20  # its whole 21-alpha sweep
+DEBUG_NANS_EPOCHS = 20
+DEBUG_NANS_TIMEOUT_S = 300
 
 
 @contextlib.contextmanager
@@ -370,11 +430,21 @@ def phase_card() -> str:
 
 
 def phase_build() -> None:
+    """The CUDA kernels (nvcc, a process a source) and, beside them, the
+    native host runtime (g++)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from tmgcn_torch import native
     from tmgcn_torch.kernels.build import build_all
 
     t0 = time.perf_counter()
-    paths = build_all(verbose=True)
-    print(f"build: {len(paths)} kernel libraries in {time.perf_counter() - t0:.3f} s")
+    with ThreadPoolExecutor(1) as pool:
+        host = pool.submit(lambda: (native.load(), time.perf_counter() - t0)[1])
+        paths = build_all(verbose=True)
+        t_kernels = time.perf_counter() - t0
+        t_native = host.result()
+    print(f"build: {len(paths)} kernel libraries in {t_kernels:.3f} s; the native host runtime "
+          f"(g++, beside them) in {t_native:.3f} s")
 
 
 def _max_err(out, ref) -> tuple[float, float]:
@@ -1528,7 +1598,7 @@ def _f1_range(np, logits, target, rel: float = 1e-5) -> list:
 
 
 def _check_eval_f1_in_tie_range(np, cfg, got, ref_res, ref_logits, name: str,
-                                ref: str = "the CPU plain path") -> None:
+                                ref: str = "the CPU plain path", data_dir=DATA_DIR) -> None:
     """Val and test F1 of the card's first epochs against the range the
     reference run's (the CPU's) evaluation logits allow once their tied
     edges go either way (1e-3 beyond it); train F1 within 1e-3 of the
@@ -1536,7 +1606,7 @@ def _check_eval_f1_in_tie_range(np, cfg, got, ref_res, ref_logits, name: str,
     from tmgcn_torch.configs.build import build_data
     from tmgcn_torch.tasks.windows import split_edges_classification
 
-    data = build_data(cfg, data_dir=DATA_DIR)
+    data = build_data(cfg, data_dir=data_dir)
     splits = split_edges_classification(data.edge_index, data.edge_values, data.spec,
                                         n_classes=cfg.n_classes)
     same_nan = np.isnan(got[:, 2]) == np.isnan(ref_res[:, 2])
@@ -2916,6 +2986,462 @@ def phase_mesh_recurrent(torch, np, tk) -> dict[str, tuple]:
     return counts
 
 
+def _registry_cfg(name: str):
+    """The preset as phase 7r runs it: TM-GCN and KW-GCN on "pallas"."""
+    from tmgcn_torch.configs.presets import get_preset
+
+    cfg = get_preset(name)
+    if cfg.method in ("tmgcn", "gcn"):
+        cfg = dataclasses.replace(cfg, spmm_impl="pallas")
+    return cfg
+
+
+def _registry_launches(cfg, epochs: int, setup: bool = True) -> tuple:
+    """The K1 launches of the set-up (without ``setup``: none) and a run of
+    ``epochs`` (the other counters 0), by family: TM-GCN and KW-GCN 3 at
+    set-up (each window's cached propagation), and uci_tmgcn_lp's full-row
+    layer 2 3 a step (forward, backward on the transposed packing, the
+    readout plan's backward) and a val and a test forward at each
+    evaluation; WD-GCN the readout plan's backward once a step; EvolveGCN-H
+    none (gather-free on every registry preset: ``_check_registry_path``)."""
+    n_evals = -(-epochs // cfg.eval_every)
+    k1 = {"tmgcn": 3 * setup + (3 * epochs + 2 * n_evals if cfg.n_layers == 2 else 0),
+          "gcn": 3 * setup, "wdgcn": epochs, "evolvegcn": 0}[cfg.method]
+    return (k1,) + (0,) * (len(COUNTERS) - 1)
+
+
+def _check_registry_path(cfg, exp, path: str) -> None:
+    """The operator each family's launches assume: K1's packing for TM-GCN
+    and KW-GCN (uci_tmgcn_lp: full-row layer 2, not restricted), the
+    readout plan for WD-GCN, the gather-free readout for EvolveGCN-H."""
+    from tmgcn_torch.kernels.spmm_cuda import PallasSpmmOperator
+
+    bundle = exp.adapter.bundles["train"]
+    if cfg.method in ("tmgcn", "gcn"):
+        ok = isinstance(bundle["adj"], PallasSpmmOperator) and "l2op" not in bundle \
+            and "l2s_op" not in bundle
+    else:
+        ok = ("readout" in bundle) == (cfg.method == "wdgcn")
+    check(ok, f"{path}: the adapter took another path than its launches assume "
+              f"(bundle keys {sorted(bundle)})")
+
+
+@contextlib.contextmanager
+def _numpy_runtime():
+    """The native host runtime's three entry points replaced by their numpy
+    plain versions (``np.loadtxt``'s columns, the vectorised splitmix64
+    stream, the numpy packer): the same set-up, for its seconds beside the
+    native runtime's."""
+    from tmgcn_torch import native
+    from tmgcn_torch.kernels import spmm_cuda
+    from tmgcn_torch.preprocess import datasets
+    from tmgcn_torch.tasks import sampling
+
+    with mock.patch.multiple(native, parse_edges=datasets.parse_edges_numpy,
+                             pack_chunks=spmm_cuda.pack_chunks_numpy,
+                             sample_negatives=sampling.sample_negatives_splitmix64):
+        yield
+
+
+def _same_setup(torch, np, a, b) -> bool:
+    """Two experiments of one config built alike: the host data bitwise
+    and each window's K1 packings (device tensors) equal."""
+    from tmgcn_torch.kernels.spmm_cuda import PallasSpmmOperator
+
+    da, db = a.data, b.data
+    fields = ("M", "edge_index", "edge_values", "lp_edges", "lp_labels")
+    same = all((getattr(da, f) is None and getattr(db, f) is None)
+               or np.array_equal(getattr(da, f), getattr(db, f)) for f in fields)
+    for w in ("train", "val", "test"):
+        same &= np.array_equal(da.feats[w], db.feats[w])
+        same &= all(np.array_equal(getattr(da.adj[w], f), getattr(db.adj[w], f))
+                    for f in ("rows", "cols", "vals", "nnz"))
+        op_a, op_b = a.adapter.bundles[w]["adj"], b.adapter.bundles[w]["adj"]
+        if isinstance(op_a, PallasSpmmOperator):
+            for side in ("packed", "packed_t"):
+                pa, pb = getattr(op_a, side), getattr(op_b, side)
+                same &= all(torch.equal(getattr(pa, f), getattr(pb, f))
+                            for f in ("rows", "cols", "vals", "window_id", "entry_order"))
+    return bool(same)
+
+
+def _k1_full_row(torch, tk, op, side: str, what: str) -> dict:
+    """K1 at a full-row layer 2's packing (``side`` "packed": the forward;
+    "packed_t": the backward's transposed packing), F = 6 random input
+    rows, against its plain version and torch.sparse.mm, timed beside its
+    bound."""
+    dev = torch.device(DEVICE)
+    p = getattr(op, side)
+    n = op.T * op.N
+    Y = torch.randn(n, 6, device=dev, generator=torch.Generator(device=dev).manual_seed(11))
+    g = tk.gather_chunks(Y, p)
+    nnz = int(p.entry_order.numel())
+    f32 = torch.float32
+
+    def run():
+        return tk.windowed_segment_matmul(p, g, out_dtype=f32)
+
+    def plain():
+        return tk.windowed_segment_matmul_reference(p, g, out_dtype=f32)
+
+    err = _check_same(torch, run, plain, what)
+    S = _packing_csr(torch, p, n)
+    lib_err, tol = _max_err(run()[:n], torch.sparse.mm(S, Y)[:n])
+    check(lib_err <= tol, f"{what} vs torch.sparse.mm: {lib_err} > {tol}")
+    shape = (f"{op.T} x {op.N} rows, F=6, nnz {nnz} in {p.n_chunks} chunks of {p.chunk} "
+             f"({p.rows.numel()} slots)")
+    print(f"{what}: J={p.n_chunks} C={p.chunk} W={p.window} F=6 nnz={nnz} "
+          f"n_rows_out={p.n_rows_out} ({shape})")
+    row = _report(torch, what, run, plain, lambda: torch.sparse.mm(S, Y), _bound(p, 6, nnz, False))
+    return {**row, "max_abs_err": err, "shape": shape}
+
+
+def _check_diverging_lp_rows(np, res, what: str) -> None:
+    """(epochs, 9) rows of a link-prediction run that diverges: the loss
+    finite up to its first non-finite epoch (past the epochs held against
+    the CPU) and non-finite from there on; MAP and MRR in [0, 1] or NaN in
+    the rows before it (after it they score non-finite logits)."""
+    loss = res[:, 2]
+    bad = np.flatnonzero(~np.isfinite(loss))
+    first = int(bad[0]) if len(bad) else len(loss)
+    check(first >= REF_EPOCHS and bool(np.all(~np.isfinite(loss[first:]))),
+          f"{what}: the loss is not finite up to one epoch and non-finite after it")
+    rates = res[:, [0, 1, 3, 4, 6, 7]]
+    ok = np.isnan(rates) | ((rates >= 0) & (rates <= 1))
+    check(bool(np.all(ok[:first])), f"{what}: MAP or MRR outside [0, 1] before the divergence")
+    print(f"{what}: the loss leaves float32's range at epoch {first} (epoch {first - 1}: "
+          f"{loss[first - 1]:.6e}), as this preset diverges in both packages; MAP/MRR "
+          f"after it in [{np.nanmin(rates[first:]) if first < len(loss) else 'none'}, "
+          f"{np.nanmax(rates[first:]) if first < len(loss) else 'none'}]")
+
+
+def _registry_cpu_refs(root: str, out: str) -> None:
+    """Each phase-7r preset's first REF_EPOCHS on the CPU's plain path, at
+    its first alpha, from the raw copies under ``root``: {name: (rows, the
+    evaluation logits)} pickled to ``out``. Run by ``_start_registry_cpu_refs``
+    in a process of its own, with no card."""
+    import torch
+
+    from tmgcn_torch.configs.build import run_experiment
+
+    torch.set_num_threads(REGISTRY_CPU_THREADS)
+    refs = {}
+    for name in _registry_names():
+        cfg = _registry_cfg(name)
+        logits = []
+        with _recorded_evals(logits):
+            ref = run_experiment(cfg, data_dir=Path(root) / cfg.dataset, n_epochs=REF_EPOCHS,
+                                 alpha_vec=cfg.alpha_vec[:1], verbose=False, device="cpu")
+        (refs[name],) = ref["results"].values()
+        refs[name] = (refs[name], logits)
+    Path(out + ".tmp").write_bytes(pickle.dumps(refs))
+    os.replace(out + ".tmp", out)
+
+
+def _start_registry_cpu_refs(root: Path, out: Path):
+    """``_registry_cpu_refs`` in a process of its own session that sees no
+    card (it runs while the phase's paths do)."""
+    code = "import sys, chip_smoke; chip_smoke._registry_cpu_refs(sys.argv[1], sys.argv[2])"
+    env = {**os.environ, "CUDA_VISIBLE_DEVICES": ""}
+    return subprocess.Popen([sys.executable, "-c", code, str(root), str(out)], env=env,
+                            cwd=os.getcwd(), stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                            text=True, start_new_session=True)
+
+
+def _registry_rows_vs_cpu(np, cfg, got, ref, data_dir, name: str) -> None:
+    """The card's first REF_EPOCHS rows against the CPU plain path's
+    (``ref``: rows and evaluation logits), at PERF.md §2's tolerances:
+    losses rtol 1e-4; F1 within 1e-3 (EvolveGCN-H: val/test F1 in the tie
+    range of the CPU's evaluation logits); MAP and MRR rtol 1e-3, NaN only
+    where the CPU has NaN."""
+    ref_res, ref_logits = ref
+    got = got[:REF_EPOCHS]
+    lp = cfg.task == "link_pred"
+    losses = [2, 5, 8] if lp else [3, 7, 11]
+    check(bool(np.allclose(got[:, losses], ref_res[:, losses], rtol=1e-4, atol=0)),
+          f"{name}: losses differ from the CPU plain path: {got[:, losses]} vs "
+          f"{ref_res[:, losses]}")
+    if lp:
+        rates = [0, 1, 3, 4, 6, 7]
+        same_nan = np.isnan(got[:, rates]) == np.isnan(ref_res[:, rates])
+        close = np.nan_to_num(np.abs(got[:, rates] - ref_res[:, rates])
+                              - 1e-3 * np.abs(ref_res[:, rates]), nan=0.0) <= 0
+        check(bool(np.all(same_nan & close)), f"{name}: MAP/MRR differ from the CPU plain path")
+    elif cfg.method == "evolvegcn":
+        _check_eval_f1_in_tie_range(np, cfg, got, ref_res, ref_logits, name, data_dir=data_dir)
+    else:
+        f1s = [2, 6, 10]
+        same_nan = np.isnan(got[:, f1s]) == np.isnan(ref_res[:, f1s])
+        close = np.nan_to_num(np.abs(got[:, f1s] - ref_res[:, f1s]), nan=0.0) <= 1e-3
+        check(bool(np.all(same_nan & close)), f"{name}: F1 differs from the CPU plain path")
+
+
+def _registry_names() -> list:
+    """Phase 7r's presets, a dataset's TM-GCN presets first: they are the
+    ones built again with the numpy plain versions, and the first build of
+    a dataset parses its raw file on either side (the later ones load the
+    .mat cache it writes)."""
+    from tmgcn_torch.configs.presets import PRESETS
+
+    return sorted((n for n, c in PRESETS.items() if c.dataset in REGISTRY_DATASETS),
+                  key=lambda n: (PRESETS[n].dataset, PRESETS[n].method != "tmgcn", n))
+
+
+def _registry_path(torch, np, tk, name: str, dirs: dict, card: str) -> tuple:
+    """One preset of phase 7r: its experiment built with the native runtime
+    (the one the runs use), and for TM-GCN again with the numpy plain
+    versions (set-up seconds side by side, the two alike: a TM-GCN preset
+    of each dataset and task runs the parser, the LP sampler and the
+    packer); REGISTRY_EPOCHS captured epochs, counted; the eager loop on
+    the same adapter (rows bitwise, launches exact); for REGISTRY_TIMED,
+    plain epochs captured and eager timed in turns. Returns (launches, K1
+    rows at uci_tmgcn_lp's full-row layer 2 or {}, the rows)."""
+    from tmgcn_torch.configs import build
+    from tmgcn_torch.utils import profile_slice
+
+    cfg = _registry_cfg(name)
+    data_dir = dirs["native"][cfg.dataset]
+    path = f"{name} ({cfg.spmm_impl})"
+    lp = cfg.task == "link_pred"
+    build_plain = build.build_experiment
+    k1_rows = {}
+    with _experiments_built_once():
+        def run(epochs):
+            out = build.run_experiment(cfg, data_dir=data_dir, n_epochs=epochs,
+                                       alpha_vec=cfg.alpha_vec[:1], verbose=False, device=DEVICE)
+            (res,) = out["results"].values()
+            return res, out["seconds"]["train"]
+
+        # The set-up (the run reuses its experiment) and the run, counted.
+        (exp, (res, t_train)), launches = _counted(tk, lambda: (
+            build.build_experiment(cfg, data_dir, device=DEVICE), run(REGISTRY_EPOCHS)))
+        _check_registry_path(cfg, exp, path)
+        expected = _registry_launches(cfg, REGISTRY_EPOCHS)
+        check(launches == expected, f"{path}: {COUNTED} launched {launches} times, expected "
+                                    f"{expected}")
+        if cfg.method == "tmgcn":
+            with _numpy_runtime():
+                plain = build_plain(cfg, dirs["numpy"][cfg.dataset], device=DEVICE)
+            check(_same_setup(torch, np, exp, plain),
+                  f"{path}: the native runtime's set-up differs from the numpy plain versions'")
+            print(f"{path}: set-up s, native runtime / numpy plain versions: data "
+                  f"{exp.seconds['data']:.6f} / {plain.seconds['data']:.6f}, adapter "
+                  f"{exp.seconds['adapter']:.6f} / {plain.seconds['adapter']:.6f} (the same "
+                  f"data and packings) [{card}]")
+            del plain
+        else:
+            print(f"{path}: set-up s, native runtime: data {exp.seconds['data']:.6f}, adapter "
+                  f"{exp.seconds['adapter']:.6f} (data 0 once its variant was built) [{card}]")
+        check(res.shape[0] == REGISTRY_EPOCHS, f"{path}: results shape {res.shape}")
+        if name in REGISTRY_DIVERGING:
+            _check_diverging_lp_rows(np, res, f"{path} cuda run")
+        else:
+            (_check_lp_rows if lp else _check_rows)(np, res, f"{path} cuda run")
+        n_eager = REGISTRY_EPOCHS if cfg.method in ("tmgcn", "gcn") else REGISTRY_EAGER_EPOCHS
+        with _eager_loop():
+            (eager, t_eager), eager_launches = _counted(tk, lambda: run(n_eager))
+        check(np.array_equal(eager, res[:n_eager], equal_nan=True),
+              f"{path}: the eager loop's rows differ from the captured loop's")
+        check(eager_launches == _registry_launches(cfg, n_eager, setup=False),
+              f"{path}: the eager loop launched {eager_launches}")
+        print(f"slice {path}: {REGISTRY_EPOCHS} epochs captured, {COUNTED} launches {launches}; "
+              f"train {t_train:.3f} s with the capture and {-(-REGISTRY_EPOCHS // cfg.eval_every)} "
+              f"evaluations; eager {n_eager} epochs {t_eager:.3f} s, rows bitwise the captured "
+              f"run's, launches {eager_launches}; final row "
+              f"{np.array2string(res[-1], precision=6, max_line_width=400)} [{card}]")
+        if name in REGISTRY_TIMED:
+            alpha = cfg.alpha_vec[0]
+            tcfg = build.train_config(cfg)
+
+            def chunk(eager):
+                return profile_slice.chunk_runner(exp, tcfg, alpha,
+                                                  torch.Generator().manual_seed(cfg.seed), eager)
+
+            times = profile_slice.timed_chunks({"captured": chunk(False), "eager": chunk(True)},
+                                               TIMED_PROBE)
+            _print_times(f"{path} plain epochs,", times, card)
+        if name == "uci_tmgcn_lp":
+            op = exp.adapter.bundles["train"]["adj"]
+            k1_rows = {
+                "uci_layer2_forward": _k1_full_row(torch, tk, op, "packed",
+                                                   "K1 uci_tmgcn_lp full-row layer 2 forward"),
+                "uci_layer2_backward": _k1_full_row(
+                    torch, tk, op, "packed_t",
+                    "K1 uci_tmgcn_lp full-row layer 2 backward (transposed packing)"),
+            }
+            # A forward a step and a val and a test forward an evaluation;
+            # a backward a step.
+            n_evals = -(-REGISTRY_EPOCHS // cfg.eval_every)
+            k1_rows["uci_layer2_forward"]["launches_per_run"] = REGISTRY_EPOCHS + 2 * n_evals
+            k1_rows["uci_layer2_backward"]["launches_per_run"] = REGISTRY_EPOCHS
+        del exp
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, k1_rows, res
+
+
+def _registry_sweep(torch, np, tk, dirs: dict, card: str) -> tuple:
+    """``cli run`` of SWEEP_PRESET with its whole 21-alpha sweep at
+    SWEEP_EPOCHS: a results pickle per alpha, seconds per alpha, and the
+    CUDA graph captures of the sweep (the step is built, and captured, once
+    per alpha)."""
+    import shutil
+
+    from tmgcn_torch import cli
+    from tmgcn_torch.configs import build
+    from tmgcn_torch.configs.presets import get_preset
+    from tmgcn_torch.train import loop
+
+    cfg = get_preset(SWEEP_PRESET)
+    seconds, captures = [], []
+    run_trial, capture = build.run_trial, loop._CapturedChunks._capture
+
+    def timed_trial(*args, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = run_trial(*args, **kwargs)
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t0)
+        return out
+
+    def counted_capture(self):
+        captures.append(1)
+        return capture(self)
+
+    out_dir = Path(REGISTRY_DIR) / "sweep_out"
+    argv = ["run", SWEEP_PRESET, "--data-dir", str(dirs["native"][cfg.dataset]), "--epochs",
+            str(SWEEP_EPOCHS), "--out", str(out_dir), "--quiet"]
+    t0 = time.perf_counter()
+    with mock.patch.object(build, "run_trial", timed_trial),             mock.patch.object(loop._CapturedChunks, "_capture", counted_capture):
+        rc, launches = _counted(tk, lambda: cli.main(argv))
+    wall = time.perf_counter() - t0
+    check(rc == 0, f"cli {' '.join(argv)} exited {rc}")
+    pickles = sorted(out_dir.glob(f"results_{SWEEP_PRESET}_*.pkl"))
+    check(len(pickles) == len(cfg.alpha_vec) == len(seconds) == 21,
+          f"sweep: {len(pickles)} results and {len(seconds)} runs for {len(cfg.alpha_vec)} alphas")
+    for pkl in pickles:
+        _check_rows(np, pickle.loads(pkl.read_bytes()), f"sweep {pkl.name}")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    print(f"sweep: cli run {SWEEP_PRESET} --epochs {SWEEP_EPOCHS}, {len(seconds)} alphas in "
+          f"{wall:.3f} s (with the set-up): s per alpha median {statistics.median(seconds):.6f}, "
+          f"first {seconds[0]:.6f}, max {max(seconds):.6f}; {len(captures)} CUDA graph captures "
+          f"for the sweep (one per alpha: each run builds its step anew), {COUNTED} launches "
+          f"{launches} [{card}]")
+    return launches
+
+
+def _start_debug_nans_cli():
+    """``python -m tmgcn_torch.cli run seir_tmgcn_reg --debug-nans`` in its
+    own session (it runs while the phase's paths do)."""
+    argv = [sys.executable, "-m", "tmgcn_torch.cli", "run", "seir_tmgcn_reg", "--debug-nans",
+            "--quiet"]
+    return subprocess.Popen(argv, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+                            start_new_session=True)
+
+
+def _check_debug_nans(torch, np, tk, proc, card: str) -> None:
+    """The diverging preset's CLI exits non-zero with FloatingPointError at
+    its first NaN (epoch 2 on the CPU, in both packages); then
+    ``cli run chess_tmgcn_cls --debug-nans --epochs 20`` in process exits 0
+    with the rows of the same run without the flag (captured)."""
+    import shutil
+
+    from tmgcn_torch import cli
+
+    try:
+        log, _ = proc.communicate(timeout=DEBUG_NANS_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.communicate()
+        check(False, f"cli run seir_tmgcn_reg --debug-nans ran past {DEBUG_NANS_TIMEOUT_S} s")
+    tail = log.strip().splitlines()[-1] if log.strip() else ""
+    check(proc.returncode != 0 and "FloatingPointError: NaN at epoch" in log,
+          f"cli run seir_tmgcn_reg --debug-nans exited {proc.returncode}: {tail}")
+    print(f"debug-nans: cli run seir_tmgcn_reg --debug-nans exited {proc.returncode}: {tail}")
+    rows, times = {}, {}
+    for flag in ([], ["--debug-nans"]):
+        out_dir = Path(REGISTRY_DIR) / f"debug_nans_out{len(flag)}"
+        argv = ["run", "chess_tmgcn_cls", "--data-dir", DATA_DIR, "--epochs",
+                str(DEBUG_NANS_EPOCHS), "--out", str(out_dir), "--quiet", *flag]
+        t0 = time.perf_counter()
+        rc = cli.main(argv)
+        times[bool(flag)] = time.perf_counter() - t0
+        check(rc == 0, f"cli {' '.join(argv)} exited {rc}")
+        (pkl,) = out_dir.glob("results_chess_tmgcn_cls_*.pkl")
+        rows[bool(flag)] = pickle.loads(pkl.read_bytes())
+        shutil.rmtree(out_dir, ignore_errors=True)
+    check(np.array_equal(rows[True], rows[False], equal_nan=True),
+          "cli run chess_tmgcn_cls --debug-nans: rows differ from the run without the flag")
+    print(f"debug-nans: cli run chess_tmgcn_cls --epochs {DEBUG_NANS_EPOCHS} with --debug-nans "
+          f"(eager, anomaly mode, a NaN check a step) exit 0 in {times[True]:.3f} s, rows bitwise "
+          f"the captured run's ({times[False]:.3f} s) [{card}]")
+
+
+def phase_registry(torch, np, tk, card: str) -> tuple[dict, dict]:
+    """Phase 7r: the 32 presets of bitcoin_otc, bitcoin_alpha, reddit,
+    amlsim (classification) and bitcoin_otc, bitcoin_alpha, reddit, uci
+    (link prediction) x TM-GCN, KW-GCN, EvolveGCN-H, WD-GCN, each through
+    ``_registry_path``, then their first epochs against the CPU's plain
+    path; K1 at uci_tmgcn_lp's full-row layer 2; a bitcoin sweep through
+    the CLI; ``--debug-nans``. The raw files are copied from data/synthetic/
+    into REGISTRY_DIR three times (the native runtime's builds, the numpy
+    plain versions' and the CPU references' write their .mat caches apart),
+    and removed when the phase ends. Returns (launches by path, K1 rows)."""
+    import shutil
+
+    from tmgcn_torch.preprocess.datasets import REGISTRY
+
+    names = _registry_names()
+    check(len(names) == 32, f"registry presets: {len(names)}, expected 32")
+    root = Path(REGISTRY_DIR)
+    shutil.rmtree(root, ignore_errors=True)
+    dirs = {}
+    for side in ("native", "numpy", "cpu"):
+        dirs[side] = {}
+        for ds in REGISTRY_DATASETS:
+            d = root / side / ds
+            d.mkdir(parents=True)
+            shutil.copy(Path("data/synthetic") / ds / REGISTRY[ds].filename, d)
+            dirs[side][ds] = d
+    counts, k1_rows, rows = {}, {}, {}
+    refs_path = root / "cpu_refs.pkl"
+    procs = [_start_registry_cpu_refs(root / "cpu", refs_path), _start_debug_nans_cli()]
+    try:
+        for name in names:
+            launches, k1, rows[name] = _registry_path(torch, np, tk, name, dirs, card)
+            counts[f"registry {name}"] = launches
+            k1_rows.update(k1)
+        counts["registry sweep"] = _registry_sweep(torch, np, tk, dirs, card)
+        _check_debug_nans(torch, np, tk, procs[1], card)
+        t0 = time.perf_counter()
+        try:
+            log, _ = procs[0].communicate(timeout=REGISTRY_CPU_TIMEOUT_S)
+        except subprocess.TimeoutExpired:
+            check(False, f"the CPU references ran past {REGISTRY_CPU_TIMEOUT_S} s")
+        check(procs[0].returncode == 0 and refs_path.exists(),
+              f"the CPU references exited {procs[0].returncode}: {log[-4000:]}")
+        print(f"registry: the CPU references (their own process, {REGISTRY_CPU_THREADS} threads) "
+              f"done {time.perf_counter() - t0:.3f} s after the card's paths")
+        refs = pickle.loads(refs_path.read_bytes())
+        for name in names:
+            cfg = _registry_cfg(name)
+            path = f"{name} ({cfg.spmm_impl})"
+            _registry_rows_vs_cpu(np, cfg, rows[name], refs[name], dirs["native"][cfg.dataset],
+                                  path)
+            print(f"slice {path} vs CPU plain path, {REF_EPOCHS} epochs: losses within rtol "
+                  f"1e-4, " + ("MAP and MRR within rtol 1e-3" if cfg.task == "link_pred"
+                               else "F1 within 1e-3 (or the tie range)"))
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                os.killpg(proc.pid, signal.SIGKILL)
+                proc.communicate()
+        shutil.rmtree(root, ignore_errors=True)
+    check(set(k1_rows) == {"uci_layer2_forward", "uci_layer2_backward"},
+          "phase 7r: K1 was not timed at uci_tmgcn_lp's full-row layer 2")
+    return counts, k1_rows
+
+
 def _print_times(what: str, times: dict, card: str, unit: str = "epoch") -> None:
     for name, t in times.items():
         print(f"{what} {name}: {t['median_ms']:.6f} ms per {unit} (median of {t['rounds']} "
@@ -3031,6 +3557,11 @@ def _phases(np, torch, tk, scale_bench) -> int:
         by_path.update(phase_mesh(torch, np, tk, card))
     with _timed("mesh: recurrent families, regression and resume at 1 x 1"):
         by_path.update(phase_mesh_recurrent(torch, np, tk))
+    with _timed("registry: the 32 presets of the other datasets"):
+        registry_counts, k1_registry = phase_registry(torch, np, tk, card)
+        by_path.update(registry_counts)
+        k1.update(k1_registry)
+        k1["max_abs_err"] = max(k1["max_abs_err"], *(r["max_abs_err"] for r in k1_registry.values()))
     by_path.update(fast_counts)
     with _timed("capture timing"):
         profiles = phase_capture_timing(torch, card)
@@ -3050,7 +3581,7 @@ def _phases(np, torch, tk, scale_bench) -> int:
     extra = ("shape", "launches_by_path", "train_window", "lp_readout_backward", "restricted_forward",
              "restricted_backward", "kwgcn2_forward", "kwgcn2_backward", "seir_wdgcn_reg",
              "cached_propagation", "restricted_scale_forward", "streamed_group_scale_forward",
-             "k1_at_scale_packing_ms",
+             "k1_at_scale_packing_ms", "uci_layer2_forward", "uci_layer2_backward",
              "readout_backward_ops_ms", "spmm_bench_r1", "spmm_bench_chess2")
     print(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [

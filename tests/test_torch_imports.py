@@ -43,8 +43,12 @@ assert {"tmgcn_torch.train.checkpoint", "tmgcn_torch.preprocess.synthetic_raw",
 # and the mesh (torch.distributed in place of shard_map)
 assert {f"tmgcn_torch.parallel.{m}" for m in ("mesh", "distributed", "collectives", "partition",
         "halo", "tmgcn_sharded", "adapter")} <= set(names)
+# and the native host runtime (its own C++ source, built and loaded here)
+assert {"tmgcn_torch.native", "tmgcn_torch.native.build"} <= set(names)
 for name in names:
     importlib.import_module(name)
+from tmgcn_torch import native
+native.load()
 import chip_smoke
 assert not [m for m in sys.modules if m.split(".")[0] in BLOCKED]
 print(len(names))

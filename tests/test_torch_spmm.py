@@ -179,3 +179,21 @@ def test_edge_flat_indices_match_jax():
     sj, tj = jer.edge_flat_indices(jnp.asarray(edges), 10)
     np.testing.assert_array_equal(s.numpy(), np.asarray(sj))
     np.testing.assert_array_equal(t.numpy(), np.asarray(tj))
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_edge_embeddings_match_jax(dtype):
+    """The (E, 2F) concatenation, bitwise; times U it is edge_readout's
+    logits (within the sum order)."""
+    rng = np.random.default_rng(4)
+    T, N, F, E = 4, 15, 6, 50
+    Y = rng.standard_normal((T, N, F)).astype(dtype)
+    edges = np.stack([rng.integers(0, T, E), rng.integers(0, N, E), rng.integers(0, N, E)])
+    out = ter.edge_embeddings(torch.from_numpy(Y), torch.from_numpy(edges))
+    ref = np.asarray(jer.edge_embeddings(jnp.asarray(Y), jnp.asarray(edges)))
+    assert out.shape == (E, 2 * F) and out.numpy().dtype == ref.dtype
+    np.testing.assert_array_equal(out.numpy(), ref)
+    U = torch.from_numpy(rng.standard_normal((2 * F, 3)).astype(dtype))
+    np.testing.assert_allclose((out @ U).numpy(),
+                               ter.edge_readout(torch.from_numpy(Y), torch.from_numpy(edges),
+                                                U).numpy(), rtol=1e-5, atol=1e-5)

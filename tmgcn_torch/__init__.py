@@ -13,6 +13,8 @@ regression; checkpoints and resume; the CLI but for multi-device runs):
     core/        temporal sparse tensor container, M-matrix constructors
     ops/         SpMM, M-transform, degree features, edge readout
     kernels/     hand-written CUDA kernels (csrc/) and their wrappers
+    native/      the C++ host runtime: raw-file parser, negative sampler,
+                 chunk packer (built with g++ at first use)
     models/      TM-GCN, KW-GCN, EvolveGCN-H, WD-GCN
     preprocess/  raw edge lists -> normalized temporal adjacency tensors;
                  the synthetic raw files and the real-data fetcher

@@ -14,6 +14,8 @@
                              # EvolveGCN-H; also chess_evolvegcn2_cls, chess_evolvegcn_lp
     python -m tmgcn_torch.cli run chess_tmgcn_cls --data-dir data/chess --epochs 5 \
         --profile prof/        # torch.profiler trace of the run: prof/trace.json
+    python -m tmgcn_torch.cli run seir_tmgcn_reg --debug-nans
+                             # eager steps; FloatingPointError at the first NaN
     python -m tmgcn_torch.cli run seir_tmgcn_reg_tuned --epochs 300
                              # SEIR node regression (also seir_{evolvegcn,wdgcn}_reg
                              # and their _tuned variants); no --data-dir: generated
@@ -47,8 +49,10 @@ prediction, its (epochs, 9) MAP-MRR rows; for regression, its result dict
 are the port's own files (``train/checkpoint.py``), not the JAX package's
 Orbax directories. ``run --mesh graph=G,time=T`` needs G x T processes
 (``torchrun``), one per card; one card allows only ``graph=1,time=1``; the
-recurrent families refuse a time axis, as the JAX package does. Not
-ported: ``run --debug-nans``.
+recurrent families refuse a time axis, as the JAX package does. ``run
+--debug-nans`` trains the steps eagerly and raises ``FloatingPointError``
+at the first NaN in a loss or a gradient, naming the epoch and the tensor
+(the JAX package's ``jax_debug_nans``).
 """
 
 from __future__ import annotations
@@ -240,6 +244,7 @@ def _cmd_run(args) -> int:
             checkpoint_dir=args.checkpoint_dir,
             mesh_shape=mesh_shape,
             device=args.device,
+            debug_nans=args.debug_nans,
         )
     elapsed = time.time() - t0
     if mesh_shape:
@@ -323,6 +328,8 @@ def main(argv=None) -> int:
     )
     rp.add_argument("--seed", type=int)
     rp.add_argument("--device", default="cuda", help=device_help)
+    rp.add_argument("--debug-nans", action="store_true",
+                    help="train eagerly and raise on the first NaN in a loss or a gradient")
     rp.add_argument("--quiet", action="store_true")
     rp.add_argument("--profile", metavar="DIR",
                     help="trace the run with torch.profiler into DIR/trace.json")

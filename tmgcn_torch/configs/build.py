@@ -438,7 +438,7 @@ def class_weights(cfg: ExperimentConfig, alpha: float) -> np.ndarray:
 
 
 def train_config(cfg: ExperimentConfig, n_epochs: int | None = None,
-                 verbose: bool = False) -> TrainConfig:
+                 verbose: bool = False, debug_nans: bool = False) -> TrainConfig:
     """The loop's settings of a config (its own n_epochs unless given)."""
     return TrainConfig(
         n_epochs=n_epochs if n_epochs is not None else cfg.n_epochs,
@@ -448,6 +448,7 @@ def train_config(cfg: ExperimentConfig, n_epochs: int | None = None,
         verbose=verbose,
         optimizer=cfg.optimizer,
         grad_clip=cfg.grad_clip,
+        debug_nans=debug_nans,
     )
 
 
@@ -495,6 +496,7 @@ def run_experiment(
     checkpoint_dir: str | Path | None = None,
     mesh_shape: tuple[int, int] | None = None,
     device: str | torch.device | None = None,
+    debug_nans: bool = False,
 ) -> dict:
     """Run the full (trials x alpha) sweep of one experiment config.
 
@@ -520,6 +522,12 @@ def run_experiment(
     fits. NCCL on ``cuda`` (this rank's card), gloo on ``cpu``. With
     ``checkpoint_dir`` rank 0 alone writes, every rank waits for each save
     and restores the same file.
+
+    ``debug_nans`` (``cli run --debug-nans``, the JAX package's
+    ``jax_debug_nans``): the training steps run eagerly, and the first NaN
+    in a loss or a gradient raises ``FloatingPointError`` naming the epoch
+    and the tensor (``train.loop._NanCheckedChunks``). Off, the steps are
+    captured on a card as always.
     """
     device = resolve_device(device)
     mesh = None
@@ -530,7 +538,7 @@ def run_experiment(
         _check_mesh_run(cfg)
         mesh = make_mesh(*mesh_shape, device=distributed.initialize(device))
     exp = build_experiment(cfg, data_dir, artifact, device, mesh)
-    tcfg = train_config(cfg, n_epochs, verbose)
+    tcfg = train_config(cfg, n_epochs, verbose, debug_nans)
     alphas = alpha_vec if alpha_vec is not None else cfg.alpha_vec
 
     t0 = time.perf_counter()

@@ -67,6 +67,7 @@ import functools
 import numpy as np
 import torch
 
+from tmgcn_torch import native
 from tmgcn_torch.core.sparse import TemporalCOO, to_device
 from tmgcn_torch.kernels.build import load_library
 from tmgcn_torch.ops.spmm_rowsplit import flatten_stream
@@ -201,8 +202,13 @@ def pack_windowed_flat(
     id (gather locality); rows inside a window are then unsorted, which
     the kernel allows.
 
-    The same packing as tmgcn_tpu's Python packer, computed with
-    vectorized numpy instead of a loop over chunks.
+    With every window (``all_windows``) the chunks are cut by the native
+    host runtime (``tmgcn_torch.native.pack_chunks``, the JAX package's
+    C++ packer, which it takes wherever its library loads); without every
+    window by ``pack_chunks_numpy``, the plain version: the same packing as
+    tmgcn_tpu's Python packer, computed with vectorized numpy instead of a
+    loop over chunks. Either way the row index (``entry_order``,
+    ``row_ptr``) is built after the packing.
     """
     g_rows = np.asarray(g_rows, np.int64)
     g_cols = np.asarray(g_cols, np.int64)
@@ -219,6 +225,37 @@ def pack_windowed_flat(
         order = np.lexsort((g_cols, g_rows // window))
         g_rows, g_cols, g_vals = g_rows[order], g_cols[order], g_vals[order]
 
+    if all_windows:
+        rows_out, cols_out, vals_out, wid_out, first_out = native.pack_chunks(
+            g_rows, g_cols, g_vals.astype(np.float64), window, chunk, n_windows
+        )
+        vals_out = vals_out.astype(g_vals.dtype)
+    else:
+        rows_out, cols_out, vals_out, wid_out, first_out = pack_chunks_numpy(
+            g_rows, g_cols, g_vals, window, chunk, n_windows, all_windows=False
+        )
+    entry_order, row_ptr = _row_index(rows_out, vals_out, wid_out, window, n_rows_out)
+    return PackedSpmm(
+        rows=rows_out,
+        cols=cols_out,
+        vals=vals_out,
+        window_id=wid_out,
+        is_first=first_out,
+        window_ptr=_window_ptr(wid_out, n_windows),
+        entry_order=entry_order,
+        row_ptr=row_ptr,
+        n_rows_out=int(n_rows_out),
+        chunk=chunk,
+        window=window,
+    )
+
+
+def pack_chunks_numpy(g_rows, g_cols, g_vals, window: int, chunk: int, n_windows: int,
+                      all_windows: bool = True):
+    """The plain version of ``native.pack_chunks``: (rows, cols, vals,
+    window_id, is_first), vals in their own dtype; with ``all_windows``
+    False only non-empty windows get chunks."""
+    P = len(g_rows)
     # Runs of equal window id; each run is cut into ceil(len / chunk) chunks.
     wid_of_entry = g_rows // window
     starts = np.flatnonzero(np.r_[True, wid_of_entry[1:] != wid_of_entry[:-1]]) if P \
@@ -253,21 +290,7 @@ def pack_windowed_flat(
     vals_out[j_of_entry, slot] = g_vals
     wid_out = chunk_wid[order].astype(np.int32)
     first_out = np.r_[True, wid_out[1:] != wid_out[:-1]].astype(np.int32)[:J]
-
-    entry_order, row_ptr = _row_index(rows_out, vals_out, wid_out, window, n_rows_out)
-    return PackedSpmm(
-        rows=rows_out,
-        cols=cols_out,
-        vals=vals_out,
-        window_id=wid_out,
-        is_first=first_out,
-        window_ptr=_window_ptr(wid_out, n_windows),
-        entry_order=entry_order,
-        row_ptr=row_ptr,
-        n_rows_out=int(n_rows_out),
-        chunk=chunk,
-        window=window,
-    )
+    return rows_out, cols_out, vals_out, wid_out, first_out
 
 
 @dataclasses.dataclass(frozen=True)

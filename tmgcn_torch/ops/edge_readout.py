@@ -59,6 +59,15 @@ def edge_readout_bilinear(Y: torch.Tensor, edges: torch.Tensor, U: torch.Tensor)
     return (flat[src_idx] * flat[trg_idx]) @ U.to(Y.dtype)
 
 
+def edge_embeddings(Y: torch.Tensor, edges: torch.Tensor) -> torch.Tensor:
+    """The explicit (E, 2F) concatenated edge embeddings [Y[k,i], Y[k,j]]:
+    what ``edge_readout`` multiplies by U without forming (for tests)."""
+    T, N, F = Y.shape
+    flat = Y.reshape(T * N, F)
+    src_idx, trg_idx = edge_flat_indices(edges, N)
+    return torch.cat([flat[src_idx], flat[trg_idx]], dim=1)
+
+
 @dataclasses.dataclass(frozen=True)
 class ReadoutPlan:
     """Prepacked kernel backward of the edge readout.

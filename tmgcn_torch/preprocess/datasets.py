@@ -9,7 +9,9 @@ config; ``load_raw`` + ``tmgcn_torch.preprocess.pipeline.preprocess`` turn
 a raw file into the framework's artifact.
 
 Port of tmgcn_tpu.preprocess.datasets: the same registry; ``load_raw``
-parses with ``np.loadtxt`` (the C++ host parser is not ported yet).
+parses with the native host runtime's parser (``tmgcn_torch.native``), as
+the JAX package does wherever its library loads; ``parse_edges_numpy`` is
+its plain version (``np.loadtxt``).
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ from pathlib import Path
 
 import numpy as np
 
+from tmgcn_torch import native
 from tmgcn_torch.preprocess.pipeline import PreprocessConfig, RawEdges, bin_edges
 
 DAY = 60.0 * 60 * 24
@@ -118,19 +121,24 @@ REGISTRY: dict[str, DatasetSpec] = {
 }
 
 
+def parse_edges_numpy(
+    path: str | Path, columns, delimiter: str | None, skiprows: int, comment: str
+) -> np.ndarray:
+    """The plain version of ``native.parse_edges``: ``np.loadtxt``'s selected
+    columns, (n_rows, len(columns)) float64."""
+    data = np.loadtxt(path, delimiter=delimiter, skiprows=skiprows, comments=comment, ndmin=2)
+    return data[:, list(columns)]
+
+
 def load_raw(
     spec: DatasetSpec, data_dir: str | Path, n_slices_cap: int | None = None
 ) -> RawEdges:
-    """Parse a dataset's raw file into binned edges (numpy parser)."""
+    """Parse a dataset's raw file into binned edges (the native runtime's
+    parser, which raises if it does not build)."""
     path = Path(data_dir) / spec.filename
-    data = np.loadtxt(
-        path,
-        delimiter=spec.delimiter,
-        skiprows=spec.skiprows,
-        comments=spec.comments,
-        ndmin=2,
-    )
-    s, d, w, t = (data[:, c] for c in spec.columns)
+    s, d, w, t = native.parse_edges(
+        path, spec.columns, spec.delimiter, spec.skiprows, spec.comments
+    ).T
     one_based = s.min() >= 1 and d.min() >= 1
     return bin_edges(
         s, d, w, t, spec.preprocess.time_delta, n_slices_cap, one_based_nodes=one_based

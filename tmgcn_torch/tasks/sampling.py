@@ -8,15 +8,16 @@ not coincide with a real edge of that slice; real edges get label 0
 (positive class), fakes label 1; the result is stably sorted by slice.
 Fakes may duplicate each other and may be self-loops, as in the reference.
 
-Two streams, both the JAX package's, drawn here in numpy:
+Two streams, both the JAX package's:
 
 * ``"splitmix64"`` (the default): the stream of the JAX package's C++
-  sampler (tmgcn_tpu/native/tmgcn_native.cpp, ``tmgcn_sample_negatives``),
-  which it uses wherever its shared library loads. Per slice j the state
-  starts at ``(seed * 0x9e3779b9 + j) ^ 0xda3e39cb94b95bdb``; draws
-  alternate src and trg, each ``splitmix64(state) % n_nodes``; a pair that
-  hits a real key is rejected. Draw k depends only on
-  ``state0 + k * 0x9e3779b97f4a7c15``, so whole batches of draws are
+  sampler, which it uses wherever its shared library loads. Per slice j
+  the state starts at ``(seed * 0x9e3779b9 + j) ^ 0xda3e39cb94b95bdb``;
+  draws alternate src and trg, each ``splitmix64(state) % n_nodes``; a
+  pair that hits a real key is rejected. The port draws it with its own
+  native runtime (``tmgcn_torch.native.sample_negatives``, the same C++);
+  ``sample_negatives_splitmix64`` is its plain version: draw k depends only
+  on ``state0 + k * 0x9e3779b97f4a7c15``, so whole batches of draws are
   computed at once in uint64 arrays.
 * ``"default_rng"``: the JAX package's numpy fallback — one
   ``np.random.default_rng(seed)`` across slices, oversampled batches of
@@ -26,6 +27,8 @@ Two streams, both the JAX package's, drawn here in numpy:
 from __future__ import annotations
 
 import numpy as np
+
+from tmgcn_torch import native
 
 _MASK64 = (1 << 64) - 1
 _GOLDEN = np.uint64(0x9E3779B97F4A7C15)
@@ -49,7 +52,7 @@ def sample_negatives_splitmix64(
     state0 = (seed & _MASK64) ^ _SEED_MIX
     real_keys = np.unique(np.asarray(real_keys, dtype=np.int64))
     n = np.uint64(n_nodes)
-    src_parts, trg_parts = [], []
+    src_parts, trg_parts = [np.zeros(0, np.int64)], [np.zeros(0, np.int64)]
     added, pair0 = 0, 0
     # Acceptance rate of a pair, for the batch size; every batch continues
     # the stream where the last one stopped, so the size changes nothing.
@@ -107,9 +110,7 @@ def augment_edges(
             continue
         key_arr = edges[1, slice_mask].astype(np.int64) * n_nodes + edges[2, slice_mask]
         if sampler == "splitmix64":
-            src, trg = sample_negatives_splitmix64(
-                key_arr, n_nodes, to_add, seed * 0x9E3779B9 + j
-            )
+            src, trg = native.sample_negatives(key_arr, n_nodes, to_add, seed * 0x9E3779B9 + j)
             new_edges.append(np.stack([np.full(to_add, j, dtype=edges.dtype), src, trg]))
             continue
         added = 0

@@ -69,6 +69,7 @@ class TrainConfig:
     verbose: bool = False
     optimizer: str = "sgd"  # "sgd" (reference) | "adam"
     grad_clip: float | None = None  # global-norm clip (None = off)
+    debug_nans: bool = False  # eager steps checked for NaN (_NanCheckedChunks)
 
 
 class _Optimizer:
@@ -156,6 +157,15 @@ def _tree_leaves(tree: dict) -> list[torch.Tensor]:
     for k in sorted(tree):
         v = tree[k]
         out.extend(_tree_leaves(v) if isinstance(v, dict) else [v])
+    return out
+
+
+def _tree_names(tree: dict, prefix: str = "") -> list[str]:
+    """The dotted name of every tensor of a nested dict, in ``_tree_leaves``'s order."""
+    out = []
+    for k in sorted(tree):
+        v = tree[k]
+        out.extend(_tree_names(v, f"{prefix}{k}.") if isinstance(v, dict) else [prefix + k])
     return out
 
 
@@ -261,8 +271,12 @@ class _Step:
     ``logit_transform`` and the adapter's carry (EvolveGCN's evolved final
     weights, which the evaluation windows start from), both detached.
     Nothing in it reads the device from the host or keeps state in Python,
-    so each replay of its capture is the next epoch.
+    so each replay of its capture is the next epoch. ``check``, when set
+    (by ``_NanCheckedChunks``, eager only), sees the loss and the gradients
+    before the update.
     """
+
+    check = None
 
     def __init__(self, adapter: ModelAdapter, variables: dict, opt: _Optimizer,
                  loss, target, with_confusion: bool, capacity: int,
@@ -286,13 +300,19 @@ class _Step:
         if self.logit_transform is not None:
             out = self.logit_transform(out)
         loss = self.loss(out, self.tgt)
-        self.opt.step(list(torch.autograd.grad(loss, self.opt.params)))
+        self._update(loss)
         out = out.detach()
         stats = [loss.detach().double()]
         if self.with_confusion:
             stats.extend(c.double() for c in _confusion(out, self.tgt))
         self._record(stats)
         return out, tuple(c.detach() for c in carry)
+
+    def _update(self, loss: torch.Tensor) -> None:
+        grads = list(torch.autograd.grad(loss, self.opt.params))
+        if self.check is not None:
+            self.check(loss, grads)
+        self.opt.step(grads)
 
     def _record(self, stats: list[torch.Tensor]) -> None:
         self.stats.index_copy_(0, self.slot, torch.stack(stats)[None])
@@ -316,7 +336,7 @@ class _StatsStep(_Step):
             self.variables, self.bundle, self.tgt, self.cw, self.logit_transform,
             confusion=self.with_confusion,
         )
-        self.opt.step(list(torch.autograd.grad(loss, self.opt.params)))
+        self._update(loss)
         self._record([loss.detach().double(), *(c.double() for c in counts)])
         return None, ()
 
@@ -425,6 +445,52 @@ class _CapturedChunks(_EagerChunks):
         self.graph = graph
 
 
+class _NanCheckedChunks(_EagerChunks):
+    """``--debug-nans``: the port's form of the JAX package's
+    ``jax_debug_nans``. Every step runs eagerly (a captured graph cannot
+    stop at a host check), under ``torch.autograd.detect_anomaly(
+    check_nan=True)``, and its loss and every gradient are read before the
+    update. The first NaN raises ``FloatingPointError`` naming the epoch and
+    the tensor (or the backward function that returned it); the parameters
+    then hold the previous epoch's values. As under ``jax_debug_nans``, an
+    inf is not a NaN and passes.
+    """
+
+    def __init__(self, step: _Step, plain: _Step | None = None):
+        super().__init__(step)
+        self.plain_step = plain
+        self.names = ["loss"] + [f"the gradient of {n}"
+                                 for n in _tree_names(step.variables["params"])]
+
+    def __call__(self, n: int, plain: bool = False) -> tuple[torch.Tensor, object]:
+        if n < 1:
+            raise ValueError(f"a chunk takes at least one step, not {n}")
+        step = self.plain_step if plain and self.plain_step is not None else self.step
+        with torch.autograd.detect_anomaly(check_nan=True):
+            for _ in range(n):
+                out = self._checked(step)
+                self.n_done += 1
+        return out
+
+    def _checked(self, step: _Step) -> tuple[torch.Tensor, object]:
+        epoch = self.n_done + (self.resumed[0] + 1 if self.resumed is not None else 0)
+
+        def check(loss: torch.Tensor, grads: list[torch.Tensor]) -> None:
+            bad = [name for name, t in zip(self.names, [loss, *grads]) if torch.isnan(t).any()]
+            if bad:
+                raise FloatingPointError(f"NaN at epoch {epoch}: {', '.join(bad)}")
+
+        step.check = check
+        try:
+            return step()
+        except RuntimeError as e:  # anomaly mode: a backward function returned NaN
+            if "nan values" not in str(e):
+                raise
+            raise FloatingPointError(f"NaN at epoch {epoch}: {e}") from e
+        finally:
+            step.check = None
+
+
 def _chunks(step: _Step, plain: _Step | None = None) -> _EagerChunks:
     """The steps' chunk runner: captured on a card (each step its own graph),
     eager on the CPU."""
@@ -507,7 +573,7 @@ def train_chunks(
     def eval_forward(window: str, carry):
         return adapter.apply(variables, adapter.bundles[window], carry)
 
-    chunks = _chunks(step, plain)
+    chunks = _NanCheckedChunks(step, plain) if cfg.debug_nans else _chunks(step, plain)
     chunks.resumed = resumed
     return chunks, eval_forward, variables
 
