@@ -268,6 +268,21 @@ non-zero, and nothing falls back to the CPU:
                   paths (exit non-zero, FloatingPointError) and ``cli run
                   chess_tmgcn_cls --debug-nans --epochs 20`` (exit 0, the
                   rows of the run without the flag);
+               s. the full-row auto operator (ops.spmm.make_auto_operator,
+                  its constants fitted on this card by utils/kernel_probe):
+                  chess_tmgcn_cls, uci_tmgcn_lp and seir_wdgcn_reg_tuned
+                  with spmm_impl "auto", seir_wdgcn_reg_tuned with
+                  "auto_bf16", each built and run 200 epochs through
+                  run_experiment, counted: each window's pick and both
+                  ratios printed; the launches each pick predicts (K1 or K3
+                  in the pick's tier, none for block-dense); the train
+                  window's pick, forward and backward at the widths the path
+                  applies it at, against the rule's other two candidates and
+                  the plain segment sum (float32 1e-5 * max(1, |ref|), bf16
+                  2e-2 of the scale); the rows against the same preset's
+                  pallas (pallas_bf16) run at 7r's tolerances (uci_tmgcn_lp:
+                  where that loss is finite and under 1e6, then finite and
+                  non-finite); the phase within AUTO_BUDGET_S;
   8. capture — chess_tmgcn_cls (pallas), chess_tmgcn2_cls (pallas and the
                preset's jnp), chess_wdgcn_cls, chess_wdgcn_lp,
                chess_evolvegcn_cls, chess_evolvegcn2_cls,
@@ -376,6 +391,16 @@ REGISTRY_TIMED = ("bitcoin_otc_tmgcn_cls", "amlsim_gcn_cls", "bitcoin_alpha_evol
 # M^3): from the same variables both packages' losses pass 1e12 at epoch 5
 # on the CPU (tests/test_torch_registry_uci_divergence.py).
 REGISTRY_DIVERGING = ("uci_tmgcn_lp",)
+# Phase 7s: the full-row auto operator (ops.spmm.make_auto_operator) as the
+# JAX package reaches it, spmm_impl "auto" on a preset through run_experiment;
+# epochs cut as 7r's. Each preset's pick is held on its train window against
+# the other two candidates and the plain segment sum; the raw copies live
+# under the build directory git ignores.
+AUTO_PATHS = (("chess_tmgcn_cls", "auto"), ("uci_tmgcn_lp", "auto"),
+              ("seir_wdgcn_reg_tuned", "auto"), ("seir_wdgcn_reg_tuned", "auto_bf16"))
+AUTO_DIR = "build/chip_smoke_auto"
+AUTO_EPOCHS = 200
+AUTO_BUDGET_S = 60
 SWEEP_PRESET, SWEEP_EPOCHS = "bitcoin_otc_tmgcn_cls", 20  # its whole 21-alpha sweep
 DEBUG_NANS_EPOCHS = 20
 DEBUG_NANS_TIMEOUT_S = 300
@@ -3442,6 +3467,201 @@ def phase_registry(torch, np, tk, card: str) -> tuple[dict, dict]:
     return counts, k1_rows
 
 
+# The kernel counter (COUNTERS' index) of each branch of the full-row rule by
+# precision class; block-dense is cuBLAS's and counts nothing.
+AUTO_COUNTER = {("windowed", False): 0, ("windowed", True): 1, ("tiled", False): 3,
+                ("tiled", True): 4, ("blockdense", False): None, ("blockdense", True): None}
+
+
+def _auto_launches(cfg, exp, epochs: int) -> tuple:
+    """The launches a run of ``epochs`` with the full-row auto operator
+    makes, from each window's pick: TM-GCN propagates each window once at
+    set-up; uci_tmgcn_lp's 2-layer model runs the train window's operator
+    forward and backward a step (and the readout plan's K1 backward), and
+    the val and test windows' forward at each evaluation; WD-GCN regression
+    propagates the train window every step and val and test once."""
+    counts = [0] * len(COUNTERS)
+    b = {w: exp.adapter.bundles[w] for w in ("train", "val", "test")}
+    n_evals = -(-epochs // cfg.eval_every)
+    if cfg.task == "regression":
+        per_window = {"train": epochs, "val": 1, "test": 1}
+    elif cfg.n_layers == 2:
+        per_window = {"train": 1 + 2 * epochs, "val": 1 + n_evals, "test": 1 + n_evals}
+        counts[0] += epochs  # the readout plan's backward, K1 float32
+    else:
+        per_window = {"train": 1, "val": 1, "test": 1}
+    for w, n in per_window.items():
+        pick = b[w]["op_choice"]
+        i = AUTO_COUNTER[(pick["branch"], pick["bf16"])]
+        if i is not None:
+            counts[i] += n
+    return tuple(counts)
+
+
+def _hold_auto_pick(torch, np, exp, name: str) -> float:
+    """The train window's picked operator, forward and backward at the
+    widths the path applies it at, against the rule's other two candidates
+    (built here, in the pick's precision class) and the plain segment sum
+    (``spmm`` "jnp", float32): float32 at 1e-5 * max(1, |ref|), the bf16
+    tiers at 2e-2 of the output's scale. Returns the largest error."""
+    from tmgcn_torch.ops.spmm import spmm
+    from tmgcn_torch.utils import kernel_probe
+
+    dev = torch.device(DEVICE)
+    bundle = exp.adapter.bundles["train"]
+    pick, op = bundle["op_choice"], bundle["adj"]
+    A = exp.data.adj["train"]
+    if exp.cfg.task == "link_pred":  # the model's input drops the last slice
+        A = A.slice_window(0, A.n_slices - 1)
+    sfx = "_bf16" if pick["bf16"] else ""
+    others = {b: kernel_probe.candidate(A, c + sfx).to(dev)
+              for b, c in (("windowed", "k1"), ("tiled", "k3"), ("blockdense", "blockdense"))
+              if b != pick["branch"]}
+    A_dev = A.to(dev)
+    widths = sorted({int(bundle["X"].shape[-1])} | (
+        {exp.cfg.hidden_feat[0]} if exp.cfg.n_layers == 2 else set()))
+    worst = 0.0
+    for F in widths:
+        gen = torch.Generator(device=dev).manual_seed(F)
+        X = torch.randn(A.n_slices, A.n_nodes, F, device=dev, generator=gen)
+        G = torch.randn(A.n_slices, A.n_nodes, F, device=dev, generator=gen)
+
+        def fwd_bwd(f):
+            x = X.detach().requires_grad_(True)
+            y = f(x)
+            return y.detach(), torch.autograd.grad(y, x, G)[0]
+
+        got = fwd_bwd(op)
+        refs = {**{b: fwd_bwd(o) for b, o in others.items()},
+                "plain segment sum": fwd_bwd(lambda x: spmm(A_dev, x))}
+        for ref_name, ref in refs.items():
+            for side, a, r in (("forward", got[0], ref[0]), ("backward", got[1], ref[1])):
+                err = float((a - r).abs().max())
+                scale = max(1.0, float(r.abs().max()))
+                tol = (2e-2 if pick["bf16"] else ATOL) * scale
+                check(err <= tol, f"{name}: the picked {pick['branch']} operator's {side} at "
+                                  f"F = {F} differs from {ref_name}: {err} > {tol}")
+                worst = max(worst, err)
+        print(f"{name}: the picked {pick['branch']}{sfx} operator at F = {F}, forward and "
+              f"backward, within tolerance of {', '.join(refs)} (train window, "
+              f"{A.n_slices} x {A.n_nodes} rows)")
+    del others, A_dev
+    return worst
+
+
+def _auto_rows_vs_pallas(np, cfg, got, ref, name: str) -> None:
+    """The auto run's rows against the same preset's pallas run (7r's
+    tolerances): losses rtol 1e-4; F1 within 1e-3; MAP and MRR rtol 1e-3;
+    regression L1 and L1 ratio rtol 1e-3. A diverging preset is held where
+    the pallas loss is finite and under 1e6 (the blow-up amplifies the two
+    operators' rounding), and to "finite, then non-finite"."""
+    if cfg.task == "regression":
+        check(bool(np.allclose(got["train_loss"], ref["train_loss"], rtol=1e-4, atol=0)),
+              f"{name}: losses differ from the pallas run's")
+        for k in REG_KEYS[1:]:
+            check(bool(np.isclose(got[k], ref[k], rtol=1e-3, atol=0)),
+                  f"{name}: {k} {got[k]} differs from the pallas run's {ref[k]}")
+        return
+    lp = cfg.task == "link_pred"
+    losses, rates = ([2, 5, 8], [0, 1, 3, 4, 6, 7]) if lp else ([3, 7, 11], [2, 6, 10])
+    keep = np.all(np.isfinite(ref[:, losses]) & (np.abs(ref[:, losses]) < 1e6), axis=1)
+    if name.split()[0] in REGISTRY_DIVERGING:
+        _check_diverging_lp_rows(np, got, f"{name} cuda run")
+        check(int(keep.sum()) >= REF_EPOCHS, f"{name}: fewer than {REF_EPOCHS} finite epochs")
+    else:
+        check(bool(keep.all()), f"{name}: the pallas run's losses are not all finite")
+    g, r = got[keep], ref[keep]
+    check(bool(np.allclose(g[:, losses], r[:, losses], rtol=1e-4, atol=0)),
+          f"{name}: losses differ from the pallas run's")
+    same_nan = np.isnan(g[:, rates]) == np.isnan(r[:, rates])
+    diff = np.nan_to_num(np.abs(g[:, rates] - r[:, rates]), nan=0.0)
+    close = diff - (1e-3 * np.abs(np.nan_to_num(r[:, rates])) if lp else 1e-3) <= 0
+    check(bool(np.all(same_nan & close)),
+          f"{name}: {'MAP/MRR' if lp else 'F1'} differ from the pallas run's")
+
+
+def _auto_path(torch, np, tk, preset: str, impl: str, data_dir, card: str) -> tuple:
+    """One path of phase 7s: the experiment built with spmm_impl ``impl``
+    (counted from its set-up), its picks printed, the train window's pick
+    held against the other candidates, AUTO_EPOCHS captured epochs with
+    the launches each pick predicts, and the rows against the same
+    preset's pallas (bf16: pallas_bf16) run. Returns (launches, the train
+    window's pick, the largest error)."""
+    from tmgcn_torch.configs import build
+    from tmgcn_torch.configs.presets import get_preset
+    from tmgcn_torch.ops import spmm as spmm_ops
+    from tmgcn_torch.tasks import adapters
+
+    cfg = dataclasses.replace(get_preset(preset), spmm_impl=impl)
+    name = f"{preset} ({impl})"
+
+    def run(c):
+        out = build.run_experiment(c, data_dir=data_dir, n_epochs=AUTO_EPOCHS,
+                                   alpha_vec=c.alpha_vec[:1], verbose=False, device=DEVICE)
+        (res,) = out["results"].values()
+        return res
+
+    with _experiments_built_once():
+        (exp, res), launches = _counted(tk, lambda: (
+            build.build_experiment(cfg, data_dir, device=DEVICE), run(cfg)))
+        for w, b in adapters._unique_windows(exp.adapter.bundles):
+            pick = b["op_choice"]
+            check(pick["branch"] in ("windowed", "tiled", "blockdense"),
+                  f"{name}: the {w} window's operator was not packed on the card ({pick})")
+            print(f"{name} {w} window: picked {pick['branch']}"
+                  f"{' bf16' if pick['bf16'] else ''}, block-dense ratio "
+                  f"{pick['blockdense_ratio']:.6f} (limit {spmm_ops.AUTO_BLOCKDENSE_RATIO}), "
+                  f"K3/K1 model ratio {pick['tiled_ratio']:.6f} (limit "
+                  f"{spmm_ops.AUTO_TILED_RATIO})"
+                  f"{', block tensor over its budget' if pick['over_budget'] else ''} [{card}]")
+        expected = _auto_launches(cfg, exp, AUTO_EPOCHS)
+        check(launches == expected, f"{name}: {COUNTED} launched {launches} times, expected "
+                                    f"{expected} from the picks")
+        err = _hold_auto_pick(torch, np, exp, name)
+        pick = exp.adapter.bundles["train"]["op_choice"]
+        ref_cfg = dataclasses.replace(cfg, spmm_impl="pallas_bf16" if impl == "auto_bf16"
+                                      else "pallas")
+        ref = run(ref_cfg)
+        del exp
+    _auto_rows_vs_pallas(np, cfg, res, ref, name)
+    print(f"slice {name}: {AUTO_EPOCHS} epochs captured, {COUNTED} launches {launches} as the "
+          f"picks predict; rows within 7r's tolerances of the {ref_cfg.spmm_impl} run's [{card}]")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, pick, err
+
+
+def phase_auto(torch, np, tk, card: str) -> tuple[dict, dict]:
+    """Phase 7s: AUTO_PATHS through ``_auto_path``. Returns (launches by
+    path, {path: the train window's pick})."""
+    import shutil
+
+    from tmgcn_torch.configs.presets import get_preset
+    from tmgcn_torch.preprocess.datasets import REGISTRY
+
+    t0 = time.perf_counter()
+    root = Path(AUTO_DIR)
+    shutil.rmtree(root, ignore_errors=True)
+    (root / "uci").mkdir(parents=True)
+    shutil.copy(Path("data/synthetic/uci") / REGISTRY["uci"].filename, root / "uci")
+    dirs = {"chess": DATA_DIR, "uci": root / "uci", "seir": None}
+    counts, picks, worst = {}, {}, 0.0
+    try:
+        for preset, impl in AUTO_PATHS:
+            data_dir = dirs[get_preset(preset).dataset]
+            launches, pick, err = _auto_path(torch, np, tk, preset, impl, data_dir, card)
+            counts[f"auto {preset} ({impl})"] = launches
+            picks[f"{preset} ({impl})"] = pick
+            worst = max(worst, err)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    seconds = time.perf_counter() - t0
+    print(f"phase 7s: {len(AUTO_PATHS)} auto paths in {seconds:.1f} s (budget {AUTO_BUDGET_S} s); "
+          f"largest error of a pick against the other candidates and the plain sum {worst:.3e}")
+    check(seconds <= AUTO_BUDGET_S, f"phase 7s took {seconds:.1f} s, over {AUTO_BUDGET_S} s")
+    return counts, picks
+
+
 def _print_times(what: str, times: dict, card: str, unit: str = "epoch") -> None:
     for name, t in times.items():
         print(f"{what} {name}: {t['median_ms']:.6f} ms per {unit} (median of {t['rounds']} "
@@ -3562,12 +3782,16 @@ def _phases(np, torch, tk, scale_bench) -> int:
         by_path.update(registry_counts)
         k1.update(k1_registry)
         k1["max_abs_err"] = max(k1["max_abs_err"], *(r["max_abs_err"] for r in k1_registry.values()))
+    with _timed("auto: the full-row auto operator"):
+        auto_counts, auto_picks = phase_auto(torch, np, tk, card)
+        by_path.update(auto_counts)
     by_path.update(fast_counts)
     with _timed("capture timing"):
         profiles = phase_capture_timing(torch, card)
     check("jax" not in sys.modules and "tmgcn_tpu" not in sys.modules,
           "the JAX package was imported")
     kernels = (k1, k1_bf16, k2, k3, k3_bf16, k1_fast, k3_fast)
+    k1["auto_picks"] = auto_picks
     for i, k in enumerate(kernels):
         k["launches"] = sum(c[i] for c in by_path.values())
         k["launches_by_path"] = {path: c[i] for path, c in by_path.items() if c[i]}
@@ -3582,7 +3806,7 @@ def _phases(np, torch, tk, scale_bench) -> int:
              "restricted_backward", "kwgcn2_forward", "kwgcn2_backward", "seir_wdgcn_reg",
              "cached_propagation", "restricted_scale_forward", "streamed_group_scale_forward",
              "k1_at_scale_packing_ms", "uci_layer2_forward", "uci_layer2_backward",
-             "readout_backward_ops_ms", "spmm_bench_r1", "spmm_bench_chess2")
+             "readout_backward_ops_ms", "spmm_bench_r1", "spmm_bench_chess2", "auto_picks")
     print(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [
         {**{k: kern[k] for k in keys}, **{k: kern[k] for k in extra if k in kern}}

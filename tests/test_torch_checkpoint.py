@@ -34,6 +34,7 @@ import numpy as np
 import pytest
 import torch
 
+from tests import torch_jax_native  # noqa: F401  (the JAX native library, built whole)
 from tests.test_torch_chunk import (
     CLS_CW, F0, LP_CW, N, _cls_setup, _graph, _lp_setup, _np_tree,
 )

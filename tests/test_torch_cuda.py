@@ -981,3 +981,53 @@ def test_mesh_resume_on_the_card(cuda_device, tmp_path):
     resumed = run(8, ck)
     np.testing.assert_array_equal(resumed[:, :4], full[:, :4])
     np.testing.assert_array_equal(resumed[:4], full[:4])
+
+
+def _auto_pattern(kind: str, T: int = 4, N: int = 2048, seed: int = 0) -> TemporalCOO:
+    """Block-friendly ("banded": within 16 of the diagonal) or "random"
+    entries, ~6,000 a slice."""
+    rng = np.random.default_rng(seed)
+    slices = []
+    for _ in range(T):
+        r = rng.integers(0, N, 6000)
+        c = (np.clip(r + rng.integers(-16, 17, 6000), 0, N - 1) if kind == "banded"
+             else rng.integers(0, N, 6000))
+        slices.append((r, c, rng.standard_normal(6000).astype(np.float32)))
+    return TemporalCOO.from_slices(slices, N)
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("kind", ["banded", "random"])
+@pytest.mark.parametrize("F", [2, 6, 128])
+def test_auto_pick_equals_the_other_candidates(cuda_device, kind, F, bf16):
+    """The full-row rule's pick (ops.spmm.make_auto_operator, the constants
+    fitted on the card) against the other two candidates of its precision
+    class (kernel_probe.candidate: K1 with sort_cols, K3, block-dense) and
+    the plain segment sum, forward and backward on the card: float32 at
+    1e-5 of the scale, the bf16 tiers at 2e-2."""
+    from tmgcn_torch.ops.spmm import make_auto_operator
+    from tmgcn_torch.utils.kernel_probe import candidate
+
+    A = _auto_pattern(kind)
+    op, pick = make_auto_operator(A, bf16=bf16, feat=F, device=cuda_device)
+    assert pick["branch"] in ("windowed", "tiled", "blockdense") and pick["bf16"] == bf16
+    sfx = "_bf16" if bf16 else ""
+    ops = {"pick": op.to(cuda_device)}
+    for branch, name in (("windowed", "k1"), ("tiled", "k3"), ("blockdense", "blockdense")):
+        if branch != pick["branch"]:
+            ops[branch] = candidate(A, name + sfx).to(cuda_device)
+    A_dev = A.to(cuda_device)
+    ops["plain"] = lambda x: spmm(A_dev, x)
+    gen = torch.Generator(device=cuda_device).manual_seed(F)
+    X = torch.randn(A.n_slices, A.n_nodes, F, device=cuda_device, generator=gen)
+    G = torch.randn(A.n_slices, A.n_nodes, F, device=cuda_device, generator=gen)
+    outs = {}
+    for k, o in ops.items():
+        x = X.detach().requires_grad_(True)
+        y = o(x)
+        outs[k] = (y.detach(), torch.autograd.grad(y, x, G)[0])
+    rel = 2e-2 if bf16 else ATOL
+    for k in ops:
+        for got, ref in zip(outs["pick"], outs[k]):
+            tol = rel * max(1.0, float(ref.abs().max()))
+            assert float((got - ref).abs().max()) <= tol, k

@@ -19,6 +19,7 @@ import numpy as np
 import pytest
 import torch
 
+from tests import torch_jax_native  # noqa: F401  (the JAX native library, built whole)
 from tests.torch_registry import raw_copies
 from tmgcn_tpu import cli as jcli
 from tmgcn_torch import cli

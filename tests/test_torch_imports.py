@@ -34,7 +34,8 @@ sys.meta_path.insert(0, Block())
 import tmgcn_torch
 names = [m.name for m in pkgutil.walk_packages(tmgcn_torch.__path__, "tmgcn_torch.")]
 assert "tmgcn_torch.tasks.sampling" in names  # the negative sampler keeps its own stream
-assert {"tmgcn_torch.utils.profiling", "tmgcn_torch.utils.spmm_bench"} <= set(names)
+assert {"tmgcn_torch.utils.profiling", "tmgcn_torch.utils.spmm_bench",
+        "tmgcn_torch.utils.kernel_probe"} <= set(names)
 # the synthetic data keep their own copies of the JAX package's generators
 assert {"tmgcn_torch.preprocess.seir", "tmgcn_torch.preprocess.sbm"} <= set(names)
 # so do the checkpoints, the raw-file generators and the fetcher

@@ -19,6 +19,7 @@ import jax
 import numpy as np
 import pytest
 
+from tests import torch_jax_native  # noqa: F401  (the JAX native library, built whole)
 from tmgcn_tpu import native
 from tmgcn_tpu.configs import build as jbuild
 from tmgcn_tpu.configs import presets as jpresets

@@ -17,6 +17,7 @@ Inputs are made with numpy from a seed. Comparisons:
 import numpy as np
 import pytest
 
+from tests import torch_jax_native  # noqa: F401  (the JAX native library, built whole)
 from tmgcn_tpu import native
 from tmgcn_tpu.tasks import metrics as jm
 from tmgcn_tpu.tasks import sampling as js

@@ -20,6 +20,7 @@ import numpy as np
 import pytest
 import torch
 
+from tests import torch_jax_native  # noqa: F401  (the JAX native library, built whole)
 from tmgcn_tpu.core.sparse import TemporalCOO as JaxCOO
 from tmgcn_tpu.models.tmgcn import TMGCN as JTMGCN
 from tmgcn_tpu.models.tmgcn import TMGCN2 as JTMGCN2

@@ -39,6 +39,7 @@ from pathlib import Path
 import numpy as np
 import pytest
 
+from tests import torch_jax_native  # noqa: F401  (the JAX native library, built whole)
 from tests.torch_registry import SYNTHETIC
 from tmgcn_tpu import native as jnative
 from tmgcn_tpu.preprocess import datasets as jds

@@ -29,6 +29,7 @@ import numpy as np
 import pytest
 import torch
 
+from tests import torch_jax_native  # noqa: F401  (the JAX native library, built whole)
 from tests.test_torch_chunk import _cls_setup, _np_tree
 from tests.test_torch_synthetic import SMALL_SBM, _float32_feats
 from tmgcn_tpu import cli as jcli

@@ -21,6 +21,7 @@ from unittest import mock
 import numpy as np
 import pytest
 
+from tests import torch_jax_native  # noqa: F401  (the JAX native library, built whole)
 from tests.torch_registry import (
     DATASETS,
     PRESETS,

@@ -21,6 +21,7 @@ import dataclasses
 import numpy as np
 import pytest
 
+from tests import torch_jax_native  # noqa: F401  (the JAX native library, built whole)
 from tests.test_torch_core import assert_coo_equal
 from tests.torch_registry import DATASETS, PRESETS, WINDOWS, raw_copies
 from tmgcn_tpu import native as jnative

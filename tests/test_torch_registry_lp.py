@@ -22,6 +22,7 @@ import dataclasses
 
 import pytest
 
+from tests import torch_jax_native  # noqa: F401  (the JAX native library, built whole)
 from tests.torch_registry import (
     DATASETS,
     PRESETS,

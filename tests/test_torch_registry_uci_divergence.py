@@ -12,6 +12,7 @@ rounding, so the two losses are held only to the same decade there.
 import numpy as np
 import pytest
 
+from tests import torch_jax_native  # noqa: F401  (the JAX native library, built whole)
 from tests.torch_registry import loop_pair, raw_copies
 from tmgcn_tpu import native as jnative
 

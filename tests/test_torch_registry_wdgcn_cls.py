@@ -9,6 +9,7 @@ window: reddit's 66 slices (bitcoin's 95, amlsim's 150 run through
 ``run_experiment`` in tests/test_torch_registry_cls.py).
 """
 
+from tests import torch_jax_native  # noqa: F401  (the JAX native library, built whole)
 from tests.torch_registry import assert_rows_close, loop_pair, raw_copies
 
 

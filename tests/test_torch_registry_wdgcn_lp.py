@@ -11,6 +11,7 @@ others run through ``run_experiment`` in tests/test_torch_registry_lp.py).
 
 import pytest
 
+from tests import torch_jax_native  # noqa: F401  (the JAX native library, built whole)
 from tests.torch_registry import assert_rows_close, loop_pair, raw_copies
 from tmgcn_tpu import native as jnative
 

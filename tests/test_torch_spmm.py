@@ -131,19 +131,6 @@ def test_packing_impls_match_jax(graph, impl, rel):
     )
 
 
-@pytest.mark.parametrize("case", ["full_row_auto_operator"])
-def test_still_unported_raise(graph, case):
-    """The full-row auto operator is not ported yet."""
-    from tmgcn_torch.tasks.adapters import _prepare_bundles
-
-    dense, X, _ = graph
-    A = TemporalCOO.from_dense(dense, pad_multiple=16)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        _prepare_bundles({w: A for w in ("train", "val", "test")},
-                         {w: X for w in ("train", "val", "test")}, None, None, False,
-                         "auto", torch.device("cpu"), readout=False)
-
-
 def test_unknown_impl_raises(graph):
     dense, X, _ = graph
     with pytest.raises(ValueError):

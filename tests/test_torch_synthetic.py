@@ -25,6 +25,7 @@ import jax
 import numpy as np
 import pytest
 
+from tests import torch_jax_native  # noqa: F401  (the JAX native library, built whole)
 from tmgcn_tpu import native
 from tmgcn_tpu.configs import build as jbuild
 from tmgcn_tpu.configs import presets as jpresets
@@ -172,9 +173,12 @@ def jax_initial_variables(cfg_j, n_slices: int, in_feat: int) -> dict:
     return jax.tree.map(np.asarray, model.init(sub))
 
 
-def run_both(monkeypatch, cfg_t, cfg_j, n_epochs: int):
+def run_both(monkeypatch, cfg_t, cfg_j, n_epochs: int, data_dirs: dict | None = None,
+             alpha_vec: tuple | None = None):
     """run_experiment of each package on the CPU from the JAX package's
-    initial variables; (port's results, JAX's results, port's adapter)."""
+    initial variables; (port's results, JAX's results, port's adapter).
+    ``data_dirs`` maps "torch" and "jax" to each side's raw copy (none for
+    the generated SEIR and SBM data); ``alpha_vec`` as run_experiment's."""
     monkeypatch.setattr(jbuild, "build_data", _float32_feats(jbuild.build_data))
     seen = {}
     for maker in ("make_edge_adapter", "make_regression_adapter"):
@@ -188,8 +192,11 @@ def run_both(monkeypatch, cfg_t, cfg_j, n_epochs: int):
             return dataclasses.replace(adapter, init=lambda generator: variables)
 
         monkeypatch.setattr(tbuild, maker, wrapped)
-    res_t = tbuild.run_experiment(cfg_t, n_epochs=n_epochs, verbose=False, device="cpu")
-    res_j = jbuild.run_experiment(cfg_j, n_epochs=n_epochs, verbose=False)
+    dirs = data_dirs or {}
+    res_t = tbuild.run_experiment(cfg_t, data_dir=dirs.get("torch"), n_epochs=n_epochs,
+                                  alpha_vec=alpha_vec, verbose=False, device="cpu")
+    res_j = jbuild.run_experiment(cfg_j, data_dir=dirs.get("jax"), n_epochs=n_epochs,
+                                  alpha_vec=alpha_vec, verbose=False)
     assert res_t["results"].keys() == res_j["results"].keys()
     return res_t["results"], res_j["results"], seen["adapter"]
 

@@ -28,6 +28,7 @@ from pathlib import Path
 import jax
 import numpy as np
 
+from tests import torch_jax_native  # noqa: F401  (the JAX native library, built whole)
 from tests.test_torch_evolvegcn_slice import _assert_f1_close, _recording
 from tmgcn_tpu.configs import build as jbuild
 from tmgcn_tpu.configs import presets as jpresets

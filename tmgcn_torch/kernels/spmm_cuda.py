@@ -351,6 +351,67 @@ class PackedTiled:
         )
 
 
+def _tiled_chunk_starts(wid: np.ndarray, tid: np.ndarray, chunk: int,
+                        ut_cap: int) -> tuple[np.ndarray, np.ndarray]:
+    """Where the tile-dedup packing cuts a (window, col)-sorted stream, given
+    each entry's window and 8-row tile: (the chunks' first entries, each
+    entry's run of equal (window, tile)). A chunk ends at ``chunk`` entries,
+    at a window boundary, or where one more entry would bring its distinct
+    tiles past ``ut_cap``."""
+    P = len(wid)
+    # Runs of equal (window, tile): a stretch of one window holds as many
+    # distinct tiles as the runs it meets.
+    new_run = np.r_[True, (wid[1:] != wid[:-1]) | (tid[1:] != tid[:-1])] if P \
+        else np.zeros(0, bool)
+    run_of = np.cumsum(new_run) - 1
+    run_start = np.flatnonzero(new_run)
+    seg_start = np.flatnonzero(np.r_[True, wid[1:] != wid[:-1]]) if P else np.zeros(0, np.int64)
+    seg_end = np.r_[seg_start[1:], P].astype(np.int64)
+
+    starts = []
+    n_runs = len(run_start)
+    for s, e in zip(seg_start.tolist(), seg_end.tolist()):
+        cs = s
+        while cs < e:
+            ce = min(cs + chunk, e)
+            k = int(run_of[cs]) + ut_cap  # the first run past the budget
+            if k < n_runs and run_start[k] < ce:
+                ce = int(run_start[k])
+            starts.append(cs)
+            cs = ce
+    return np.asarray(starts, np.int64), run_of
+
+
+def tiled_counts(g_rows: np.ndarray, g_cols: np.ndarray, n_out: int,
+                 chunk: int = DEFAULT_CHUNK, window: int = DEFAULT_WINDOW,
+                 ut_cap: int = 64) -> tuple[int, int]:
+    """(chunks, distinct 8-row tiles summed over the chunks) of the packing
+    ``pack_windowed_tiled_flat`` makes of this stream (rows in any order,
+    < n_out), counted without filling it: K3 gathers that many tiles."""
+    g_rows = np.asarray(g_rows, np.int64)
+    g_cols = np.asarray(g_cols, np.int64)
+    n_windows = -(-n_out // window)
+    P = len(g_rows)
+    if not P:
+        return n_windows, 0
+    order = np.lexsort((g_cols, g_rows // window))
+    wid, tid = g_rows[order] // window, g_cols[order] // 8
+    starts, run_of = _tiled_chunk_starts(wid, tid, chunk, ut_cap)
+    ends = np.r_[starts[1:], P]
+    tiles = int(np.sum(run_of[ends - 1] - run_of[starts] + 1))
+    return len(starts) + n_windows - len(np.unique(wid)), tiles
+
+
+def windowed_chunks(g_rows: np.ndarray, n_out: int, chunk: int = DEFAULT_CHUNK,
+                    window: int = DEFAULT_WINDOW) -> int:
+    """The chunks of ``pack_windowed_flat``'s packing of a stream with these
+    rows (< n_out), with or without ``sort_cols``: each window's entries in
+    ceil(count / chunk) chunks, and one for a window with none."""
+    counts = np.bincount(np.asarray(g_rows, np.int64) // window,
+                         minlength=-(-n_out // window))
+    return int(np.sum(np.maximum(1, -(-counts // chunk))))
+
+
 def pack_windowed_tiled_flat(
     g_rows: np.ndarray,
     g_cols: np.ndarray,
@@ -385,28 +446,7 @@ def pack_windowed_tiled_flat(
         g_rows, g_cols, g_vals = g_rows[order], g_cols[order], g_vals[order]
     wid = g_rows // window
     tid = g_cols // 8
-
-    # Runs of equal (window, tile): a stretch of one window holds as many
-    # distinct tiles as the runs it meets.
-    new_run = np.r_[True, (wid[1:] != wid[:-1]) | (tid[1:] != tid[:-1])] if P \
-        else np.zeros(0, bool)
-    run_of = np.cumsum(new_run) - 1
-    run_start = np.flatnonzero(new_run)
-    seg_start = np.flatnonzero(np.r_[True, wid[1:] != wid[:-1]]) if P else np.zeros(0, np.int64)
-    seg_end = np.r_[seg_start[1:], P].astype(np.int64)
-
-    starts = []
-    n_runs = len(run_start)
-    for s, e in zip(seg_start.tolist(), seg_end.tolist()):
-        cs = s
-        while cs < e:
-            ce = min(cs + chunk, e)
-            k = int(run_of[cs]) + ut_cap  # the first run past the budget
-            if k < n_runs and run_start[k] < ce:
-                ce = int(run_start[k])
-            starts.append(cs)
-            cs = ce
-    starts = np.asarray(starts, np.int64)
+    starts, run_of = _tiled_chunk_starts(wid, tid, chunk, ut_cap)
     lens = np.diff(np.r_[starts, P]).astype(np.int64)
     chunk_wid = wid[starts]
     if all_windows:

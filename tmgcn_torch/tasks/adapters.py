@@ -72,7 +72,7 @@ from tmgcn_torch.models.tmgcn import TMGCN, TMGCN2, TMGCNReg
 from tmgcn_torch.models.wdgcn import WDGCN, WDGCNReg
 from tmgcn_torch.ops import spmm_blockdense, spmm_rowsplit
 from tmgcn_torch.ops.edge_readout import make_readout_plan, readout_operator
-from tmgcn_torch.ops.spmm import pack_operator
+from tmgcn_torch.ops.spmm import make_auto_operator, pack_operator
 
 WINDOWS = ("train", "val", "test")
 
@@ -410,13 +410,13 @@ def _prepare_bundles(
             A = A.slice_window(0, A.n_slices - 1)
             X = X[:-1]
         n_slices, n_nodes = A.n_slices, A.n_nodes
+        choice = None
         if spmm_operator in ("auto", "auto_bf16"):
-            raise NotImplementedError(
-                f"the full-row {spmm_operator!r} operator (the JAX package's "
-                "ops/spmm.make_auto_operator, calibrated on a TPU) is not ported yet "
-                "(ROADMAP queue 2, re-derive the auto rules on the H100)"
-            )
-        if spmm_operator is not None:
+            # The full-row rule, with constants measured on the card;
+            # unpacked off it, as the JAX package's off the TPU.
+            A, choice = make_auto_operator(A, bf16=spmm_operator == "auto_bf16",
+                                           feat=X.shape[-1], device=device)
+        elif spmm_operator is not None:
             # Prepack the square operator (and its transpose) once, host-side,
             # with the arguments of spmm(impl=...).
             A = pack_operator(A, spmm_operator)
@@ -425,6 +425,9 @@ def _prepare_bundles(
             "adj": A.to(device),
             "X": torch.as_tensor(X, dtype=torch.float32, device=device),
         }
+        if choice is not None:
+            # What the full-row rule saw and picked, for the logs (not a tensor).
+            bundle["op_choice"] = choice
         if edges is not None:
             bundle["edges"] = torch.as_tensor(
                 np.asarray(edges[w]), dtype=torch.long, device=device
