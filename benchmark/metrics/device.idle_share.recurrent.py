@@ -1,0 +1,7 @@
+"""``device.idle_share``, in the cells whose rate is ``train_edges_per_s.recurrent``."""
+
+from benchmark import harness
+
+
+def read(ctx):
+    return harness.metric_reader("device.idle_share")(ctx)

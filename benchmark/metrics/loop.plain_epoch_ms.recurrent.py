@@ -1,0 +1,7 @@
+"""``loop.plain_epoch_ms``, in the cells whose rate is ``train_edges_per_s.recurrent``."""
+
+from benchmark import harness
+
+
+def read(ctx):
+    return harness.metric_reader("loop.plain_epoch_ms")(ctx)
