@@ -706,6 +706,40 @@ def test_chunks_replay_one_captured_step(cuda_device):
     assert len(torch.unique(stats[:, 0])) == 4  # four steps, four losses
 
 
+@pytest.mark.parametrize("family", ["tmgcn2", "wdgcn"])
+def test_phase_events_time_the_captured_step(cuda_device, family):
+    """``phase_events``: four timing events in the captured step read the
+    last replay's forward, backward and update; the graph's steps are the
+    steps without them (losses bitwise); with the recorder on, the capture
+    and each chunk of replays are one span."""
+    from tmgcn_torch.tasks.adapters import make_edge_adapter
+    from tmgcn_torch.train import loop
+    from tmgcn_torch.utils import profiling
+
+    model, M, adj, feats, edges, splits = _cls_problem(family, "pallas")
+    ad = make_edge_adapter(model, adj, feats, edges, M=M, device=cuda_device)
+
+    def losses(phase_events):
+        ch, _, _ = loop.train_chunks(ad, splits["train"], np.ones(3) / 3, loop.TrainConfig(),
+                                     capacity=8, phase_events=phase_events)
+        with profiling.recording():
+            ch(1)
+            ch(3)
+        torch.cuda.synchronize()
+        return ch, ch.stats(4)[:, 0].cpu().numpy()
+
+    plain, want = losses(False)
+    with pytest.raises(ValueError, match="phase"):
+        plain.phase_ms()
+    timed, got = losses(True)
+    np.testing.assert_array_equal(got, want)
+    names = [(r["name"], r["attrs"].get("n")) for r in profiling.records()]
+    assert names == [("loop.capture", None), ("loop.steps", 3)]
+    ms = timed.phase_ms()
+    assert set(ms) == {"forward", "backward", "update"}
+    assert all(0 < v < 1e3 for v in ms.values())
+
+
 @pytest.mark.parametrize("optimizer", ["sgd", "adam"])
 def test_resumed_captured_run_matches_uninterrupted(cuda_device, optimizer, tmp_path):
     """8 epochs, eval_every 3, on the card; then 4 epochs that save and a

@@ -92,3 +92,13 @@ def test_cli_run_profile_writes_a_trace(tmp_path):
     assert rc == 0
     trace = json.loads((tmp_path / "prof" / "trace.json").read_text())
     assert len(trace["traceEvents"]) > 0
+    # The span recorder was on: its records and summary beside the trace,
+    # and each span a host range of the trace.
+    spans = json.loads((tmp_path / "prof" / "spans.json").read_text())
+    names = {r["name"] for r in spans["records"]}
+    assert {"setup.data", "data.load", "data.features", "setup.adapter", "adapter.bundles",
+            "adapter.propagate", "loop.trial", "loop.prepare", "loop.eval",
+            "loop.eval.forward", "loop.eval.score", "loop.steps", "loop.fetch"} <= names
+    assert set(spans["summary"]) == names
+    assert spans["summary"]["loop.eval"]["count"] == 1  # 2 epochs: one evaluation
+    assert names <= {e["name"] for e in trace["traceEvents"] if e.get("ph") == "X"}

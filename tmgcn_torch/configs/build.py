@@ -61,6 +61,7 @@ from tmgcn_torch.train.loop import (
     run_regression,
     train_chunks,
 )
+from tmgcn_torch.utils.profiling import span
 
 WINDOWS = ("train", "val", "test")
 
@@ -185,40 +186,42 @@ def build_data(
         if cached.exists():
             artifact = cached
 
-    if artifact is not None and Path(artifact).exists():
-        loaded = load_artifact(artifact, s_train=p.s_train, min_slices=spec.total)
-        A_bin = loaded["A_binary"]
-        A_labels = loaded["A_labels"]
-        M = loaded["M"]
-        Ct = loaded["Ct"]
-        C_full = loaded.get("C")
-    else:
-        if data_dir is None:
-            raise FileNotFoundError(
-                f"dataset {cfg.dataset!r} needs --data-dir with {spec_entry.filename} "
-                "or --artifact pointing at a preprocessed .mat"
+    from_artifact = artifact is not None and Path(artifact).exists()
+    with span("data.load", cached=from_artifact):
+        if from_artifact:
+            loaded = load_artifact(artifact, s_train=p.s_train, min_slices=spec.total)
+            A_bin = loaded["A_binary"]
+            A_labels = loaded["A_labels"]
+            M = loaded["M"]
+            Ct = loaded["Ct"]
+            C_full = loaded.get("C")
+        else:
+            if data_dir is None:
+                raise FileNotFoundError(
+                    f"dataset {cfg.dataset!r} needs --data-dir with {spec_entry.filename} "
+                    "or --artifact pointing at a preprocessed .mat"
+                )
+            raw = dsets.load_raw(spec_entry, data_dir)
+            pre = preprocess(raw, p)
+            cached = Path(data_dir) / f"saved_content_{cfg.dataset}.mat"
+            try:
+                save_artifact(cached, pre)
+            except OSError:
+                pass  # a read-only data dir only loses the cache
+            # Mirror the reference scripts: A for features is ones on A_labels support.
+            labels_edges = pre.A_labels.edge_list()
+            A_bin = TemporalCOO.from_global_coo(
+                labels_edges[0],
+                labels_edges[1],
+                labels_edges[2],
+                np.ones(labels_edges.shape[1]),
+                pre.A_labels.n_slices,
+                pre.A_labels.n_nodes,
             )
-        raw = dsets.load_raw(spec_entry, data_dir)
-        pre = preprocess(raw, p)
-        cached = Path(data_dir) / f"saved_content_{cfg.dataset}.mat"
-        try:
-            save_artifact(cached, pre)
-        except OSError:
-            pass  # a read-only data dir only loses the cache
-        # Mirror the reference scripts: A for features is ones on A_labels support.
-        labels_edges = pre.A_labels.edge_list()
-        A_bin = TemporalCOO.from_global_coo(
-            labels_edges[0],
-            labels_edges[1],
-            labels_edges[2],
-            np.ones(labels_edges.shape[1]),
-            pre.A_labels.n_slices,
-            pre.A_labels.n_nodes,
-        )
-        A_labels = pre.A_labels
-        M = pre.M
-        Ct = pre.Ct_windows
-        C_full = pre.C
+            A_labels = pre.A_labels
+            M = pre.M
+            Ct = pre.Ct_windows
+            C_full = pre.C
 
     X = degree_features_np(A_bin)
     if X.shape[0] < spec.total:
@@ -339,7 +342,8 @@ class Experiment:
     """One config built on its device: the data, the windows' splits (for
     regression the windows' (T, N) targets) and the adapter (bundles packed
     and moved, cached propagation done), with the host seconds of the data
-    and the adapter builds."""
+    and the adapter builds (the ``setup.data`` and ``setup.adapter`` spans;
+    the adapter's ends in a synchronise)."""
 
     cfg: ExperimentConfig
     data: ExperimentData
@@ -391,42 +395,41 @@ def build_experiment(
     device = resolve_device(device) if mesh is None else mesh.device
     if mesh is not None:
         _check_mesh_run(cfg)
-    t0 = time.perf_counter()
-    data = build_data(cfg, data_dir=data_dir, artifact=artifact)
-    t_data = time.perf_counter() - t0
-
-    t0 = time.perf_counter()
-    in_feat = data.feats["train"].shape[-1]
-    link_pred = cfg.task == "link_pred"
-    if cfg.task == "regression":
-        # The adapter reads M only for TM-GCN, as the JAX package's does.
-        splits = data.reg_targets
-        model = build_model(cfg, data.spec.s_train, in_feat)
-        if mesh is None:
-            adapter = make_regression_adapter(model, data.adj, data.feats, M=data.M,
-                                              device=device)
-        else:
-            from tmgcn_torch.parallel.adapter import make_sharded_regression_adapter
-
-            adapter = make_sharded_regression_adapter(
-                model, data.adj, data.feats, data.M if cfg.method == "tmgcn" else None, mesh)
-    else:
-        if link_pred:
-            # The model consumes slices [0, S-1) and predicts the edges of [1, S).
-            splits = split_data_link_prediction(data.lp_edges, data.lp_labels, data.spec)
-            model_edges = {w: splits[w].model_edges for w in WINDOWS}
-            model = build_model(cfg, data.spec.s_train - 1, in_feat)
-        else:
-            splits = split_edges_classification(
-                data.edge_index, data.edge_values, data.spec, n_classes=cfg.n_classes
-            )
-            model_edges = {w: splits[w].edges for w in WINDOWS}
+    with span("setup.data") as data_span:
+        data = build_data(cfg, data_dir=data_dir, artifact=artifact)
+    with span("setup.adapter") as adapter_span:
+        in_feat = data.feats["train"].shape[-1]
+        link_pred = cfg.task == "link_pred"
+        if cfg.task == "regression":
+            # The adapter reads M only for TM-GCN, as the JAX package's does.
+            splits = data.reg_targets
             model = build_model(cfg, data.spec.s_train, in_feat)
-        adapter = _make_edge_adapter(cfg, model, data, model_edges, link_pred, device, mesh)
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
-    t_adapter = time.perf_counter() - t0
-    return Experiment(cfg, data, splits, adapter, {"data": t_data, "adapter": t_adapter})
+            if mesh is None:
+                adapter = make_regression_adapter(model, data.adj, data.feats, M=data.M,
+                                                  device=device)
+            else:
+                from tmgcn_torch.parallel.adapter import make_sharded_regression_adapter
+
+                adapter = make_sharded_regression_adapter(
+                    model, data.adj, data.feats, data.M if cfg.method == "tmgcn" else None,
+                    mesh)
+        else:
+            if link_pred:
+                # The model consumes slices [0, S-1) and predicts the edges of [1, S).
+                splits = split_data_link_prediction(data.lp_edges, data.lp_labels, data.spec)
+                model_edges = {w: splits[w].model_edges for w in WINDOWS}
+                model = build_model(cfg, data.spec.s_train - 1, in_feat)
+            else:
+                splits = split_edges_classification(
+                    data.edge_index, data.edge_values, data.spec, n_classes=cfg.n_classes
+                )
+                model_edges = {w: splits[w].edges for w in WINDOWS}
+                model = build_model(cfg, data.spec.s_train, in_feat)
+            adapter = _make_edge_adapter(cfg, model, data, model_edges, link_pred, device, mesh)
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+    return Experiment(cfg, data, splits, adapter,
+                      {"data": data_span.seconds, "adapter": adapter_span.seconds})
 
 
 def class_weights(cfg: ExperimentConfig, alpha: float) -> np.ndarray:
@@ -475,14 +478,16 @@ def run_trial(exp: Experiment, tcfg: TrainConfig, alpha: float | None,
 
 
 def trial_chunks(exp: Experiment, tcfg: TrainConfig, alpha: float | None,
-                 generator: torch.Generator, capacity: int | None = None):
+                 generator: torch.Generator, capacity: int | None = None,
+                 phase_events: bool = False):
     """The chunk runner of the step that ``run_trial`` trains, from the
-    same parameters (``train.loop.train_chunks``'s ``chunks``), for timing
-    plain epochs alone."""
+    same parameters (``train.loop.train_chunks``'s ``chunks``, with its
+    ``phase_events``), for timing plain epochs alone."""
     lp = {"loss_type": exp.cfg.loss_type} if exp.link_pred else {}
     cw = None if exp.cfg.task == "regression" else class_weights(exp.cfg, alpha)
     chunks, _, _ = train_chunks(exp.adapter, exp.splits["train"], cw, tcfg, task=exp.cfg.task,
-                                generator=generator, capacity=capacity, **lp)
+                                generator=generator, capacity=capacity,
+                                phase_events=phase_events, **lp)
     return chunks
 
 

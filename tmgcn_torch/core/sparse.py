@@ -21,6 +21,8 @@ from typing import Sequence
 import numpy as np
 import torch
 
+from tmgcn_torch.utils.profiling import spanned
+
 
 def _round_up(x: int, multiple: int) -> int:
     return ((x + multiple - 1) // multiple) * multiple
@@ -77,6 +79,7 @@ class TemporalCOO:
     # ------------------------------------------------------------------
 
     @staticmethod
+    @spanned("data.coo", result_attrs=lambda coo: {"nnz": int(coo.nnz.sum())})
     def from_slices(
         slices: Sequence[tuple[np.ndarray, np.ndarray, np.ndarray]],
         n_nodes: int,
@@ -87,7 +90,8 @@ class TemporalCOO:
         """Build from per-slice (rows, cols, vals) numpy triples.
 
         Duplicate (row, col) entries within a slice are summed (the analog
-        of ``coalesce``). Entries are then sorted by (row, col).
+        of ``coalesce``). Entries are then sorted by (row, col). Each call
+        is a ``data.coo`` span, with the entries kept (``nnz``).
         """
         T = len(slices)
         coalesced = []

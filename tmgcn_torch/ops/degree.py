@@ -11,8 +11,10 @@ from __future__ import annotations
 import numpy as np
 
 from tmgcn_torch.core.sparse import TemporalCOO
+from tmgcn_torch.utils.profiling import spanned
 
 
+@spanned("data.features")
 def degree_features_np(A: TemporalCOO) -> np.ndarray:
     """(T, N, 2) float64: [:, :, 0] = column sums, [:, :, 1] = row sums.
 
@@ -30,6 +32,7 @@ def degree_features_np(A: TemporalCOO) -> np.ndarray:
     return out
 
 
+@spanned("data.features")
 def spectral_features_np(A: TemporalCOO, k: int = 2) -> np.ndarray:
     """(T, N, k) float64 spectral node features, constant across slices.
 

@@ -73,6 +73,7 @@ from tmgcn_torch.models.wdgcn import WDGCN, WDGCNReg
 from tmgcn_torch.ops import spmm_blockdense, spmm_rowsplit
 from tmgcn_torch.ops.edge_readout import make_readout_plan, readout_operator
 from tmgcn_torch.ops.spmm import make_auto_operator, pack_operator
+from tmgcn_torch.utils.profiling import span, spanned
 
 WINDOWS = ("train", "val", "test")
 
@@ -188,9 +189,9 @@ def _build_restricted_layer2(
             rows_c, cols_c, vals_c, n_in=len(used), n_out=len(uniq), k=4
         )
     bundle["l2op"] = op.to(device)
-    if est is not None:
-        # What the accelerator rule saw and picked, for the logs (not a tensor).
-        bundle["l2op_choice"] = {"operator": operator, "ratio": est["ratio"]}
+    # The operator built and the ratio the accelerator rule saw (None where
+    # it did not run), for the logs and the adapter.layer2 span (not a tensor).
+    bundle["l2op_choice"] = {"operator": operator, "ratio": est["ratio"] if est else None}
     F0 = bundle[cached_key].shape[-1]
     bundle["l2_Hin"] = bundle[cached_key].reshape(T * N, F0)[
         torch.as_tensor(used, dtype=torch.long, device=device)
@@ -222,6 +223,7 @@ def _build_streamed_layer2(
     impl ending in ``bf16``.
 
     Bundle keys: ``l2s_op`` (the groups' FlatPallasOperators, a list),
+    ``l2op_choice`` (the operator's name, "pallas" or "pallas_bf16"),
     ``l2s_Hin`` (n_chunks, S_max, F0) — the cached propagation at each
     group's used rows, row 0 in the unused slots — and ``l2s_src`` /
     ``l2s_trg`` (E,): indices into the (n_chunks · U_pad, F1) stacked output.
@@ -286,6 +288,10 @@ def _build_streamed_layer2(
 
     bundle["l2s_src"] = torch.as_tensor(to_stream(src_keys), device=device)
     bundle["l2s_trg"] = torch.as_tensor(to_stream(trg_keys), device=device)
+    # The operator built (K1 whatever ``operator`` names), for the logs and
+    # the adapter.layer2 span (not a tensor).
+    bundle["l2op_choice"] = {"operator": "pallas_bf16" if gather_dtype else "pallas",
+                             "ratio": None}
 
 
 def _layer2_rows(model: TMGCN2, W1: torch.Tensor, H: torch.Tensor, op) -> torch.Tensor:
@@ -377,6 +383,7 @@ OPERATOR_IMPLS = (
 )
 
 
+@spanned("adapter.bundles", sync=True)
 def _prepare_bundles(
     adj: dict[str, TemporalCOO],
     feats: dict[str, Any],
@@ -679,8 +686,9 @@ def make_edge_adapter(
         # weight evolution keeps only parameter-dependent SpMMs (none for
         # 1 layer, layer 2's for 2 layers).
         with torch.no_grad():
-            for b in _unique_bundles(bundles):
-                b["cached_ax"] = model.propagate(b["adj"], b["X"])
+            with span("adapter.propagate", sync=True):
+                for b in _unique_bundles(bundles):
+                    b["cached_ax"] = model.propagate(b["adj"], b["X"])
             if evolve == "gather_free":
                 apply = _evolvegcn_gather_free(model, bundles, edges)
             elif evolve == "restricted":
@@ -703,7 +711,7 @@ def make_edge_adapter(
         return ModelAdapter(init, apply, bundles, device, initial_carry)
 
     if isinstance(model, (KWGCN, WDGCN)):
-        with torch.no_grad():
+        with torch.no_grad(), span("adapter.propagate", sync=True):
             for b in _unique_bundles(bundles):
                 b["cached"] = model.propagate(b["adj"], b["X"])
 
@@ -733,7 +741,7 @@ def make_edge_adapter(
     if isinstance(model, WDGCN):
         # The cached propagation, transposed to (T, F0, N): the forward
         # then runs on the (F, N) layout (models/wdgcn.lstm_scan_t).
-        with torch.no_grad():
+        with torch.no_grad(), span("adapter.propagate", sync=True):
             for b in _unique_bundles(bundles):
                 b["cached_t"] = b["cached"].transpose(1, 2).contiguous()
 
@@ -752,7 +760,7 @@ def make_edge_adapter(
 
     # Cache the parameter-independent first-layer propagation, as the
     # reference does at model init (embedding_help_functions.py:195).
-    with torch.no_grad():
+    with torch.no_grad(), span("adapter.propagate", sync=True):
         for b in _unique_bundles(bundles):
             b["cached"] = model.propagate(b["adj"], b["X"], b["M"])
 
@@ -761,12 +769,17 @@ def make_edge_adapter(
         with torch.no_grad():
             # Windows that share a bundle share adj and edges: build once.
             for w, b in _unique_windows(bundles):
-                if l2_stream_chunks:
-                    _build_streamed_layer2(b, adj[w], as_numpy(edges[w]), drop_last_slice,
-                                           n_chunks=l2_stream_chunks, operator=operator)
-                else:
-                    _build_restricted_layer2(b, adj[w], as_numpy(edges[w]), drop_last_slice,
-                                             operator=operator)
+                with span("adapter.layer2", sync=True, window=w) as s:
+                    if l2_stream_chunks:
+                        _build_streamed_layer2(b, adj[w], as_numpy(edges[w]), drop_last_slice,
+                                               n_chunks=l2_stream_chunks, operator=operator)
+                    else:
+                        _build_restricted_layer2(b, adj[w], as_numpy(edges[w]),
+                                                 drop_last_slice, operator=operator)
+                    choice = b["l2op_choice"]
+                    ratio = choice["ratio"]
+                    s.set(operator=choice["operator"],
+                          ratio=float(ratio) if ratio is not None else None)
         logits = _streamed_logits if l2_stream_chunks else _restricted_logits
 
         def apply(variables, bundle, carry):
@@ -836,7 +849,7 @@ def make_regression_adapter(
         return model.init(generator, device)
 
     if isinstance(model, TMGCNReg):
-        with torch.no_grad():
+        with torch.no_grad(), span("adapter.propagate", sync=True):
             for b in _unique_bundles(bundles):
                 b["cached"] = model.propagate(b["adj"], b["X"], b["M"])
 
@@ -848,7 +861,7 @@ def make_regression_adapter(
 
     elif isinstance(model, EvolveGCNReg):
         # The parameter-independent A@X, so the weight loop runs no SpMM.
-        with torch.no_grad():
+        with torch.no_grad(), span("adapter.propagate", sync=True):
             for b in _unique_bundles(bundles):
                 b["cached_ax"] = model.propagate(b["adj"], b["X"])
 

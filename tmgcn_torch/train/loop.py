@@ -38,6 +38,15 @@ evaluation epoch, so a resumed run repeats the chunk after the saved
 epoch on a shifted schedule: its train losses (and classification's train
 F1) equal the uninterrupted run's, its evaluation rows do not. Regression
 saves at chunk ends, so its resumed run is the uninterrupted one.
+
+Spans (``utils.profiling``; they record only while the recorder is on): a
+loop run is one ``loop.trial``; inside it ``loop.prepare`` (building the
+step), ``loop.capture`` (the warm-up step and the capture), ``loop.steps``
+(a chunk of replays, ``n``), ``loop.fetch`` (a chunk's stats to the host,
+where the host waits for the card), ``loop.rows`` (the host rows of a
+plain chunk), ``loop.eval`` (an evaluation epoch) with its
+``loop.eval.forward`` and ``loop.eval.score``, and ``loop.checkpoint``.
+None is opened per replay.
 """
 
 from __future__ import annotations
@@ -58,6 +67,7 @@ from tmgcn_torch.train.losses import (
     summed_per_slice_mse,
     weighted_cross_entropy,
 )
+from tmgcn_torch.utils.profiling import TRIAL, span, spanned
 
 
 @dataclasses.dataclass(frozen=True)
@@ -273,14 +283,18 @@ class _Step:
     Nothing in it reads the device from the host or keeps state in Python,
     so each replay of its capture is the next epoch. ``check``, when set
     (by ``_NanCheckedChunks``, eager only), sees the loss and the gradients
-    before the update.
+    before the update. ``phase_events`` (on a card): four timing events,
+    recorded before the forward, after the loss, after the gradients and
+    after the update and the stats; captured, they are event-record nodes
+    of the graph, and ``_EagerChunks.phase_ms`` reads the last step's
+    phases from them. Without them the step records no event.
     """
 
     check = None
 
     def __init__(self, adapter: ModelAdapter, variables: dict, opt: _Optimizer,
                  loss, target, with_confusion: bool, capacity: int,
-                 logit_transform=None):
+                 logit_transform=None, phase_events: bool = False):
         self.device = adapter.device
         self.adapter = adapter
         self.variables = variables
@@ -294,22 +308,33 @@ class _Step:
         n_stats = 4 if with_confusion else 1
         self.stats = torch.zeros((capacity, n_stats), dtype=torch.float64, device=self.device)
         self.slot = torch.zeros((1,), dtype=torch.long, device=self.device)
+        self.events = None
+        if phase_events:
+            self.events = [torch.cuda.Event(enable_timing=True, external=True) for _ in range(4)]
 
     def __call__(self) -> tuple[torch.Tensor, object]:
+        self._mark(0)
         out, carry = self.adapter.apply(self.variables, self.bundle, ())
         if self.logit_transform is not None:
             out = self.logit_transform(out)
         loss = self.loss(out, self.tgt)
+        self._mark(1)
         self._update(loss)
         out = out.detach()
         stats = [loss.detach().double()]
         if self.with_confusion:
             stats.extend(c.double() for c in _confusion(out, self.tgt))
         self._record(stats)
+        self._mark(3)
         return out, tuple(c.detach() for c in carry)
+
+    def _mark(self, i: int) -> None:
+        if self.events is not None:
+            self.events[i].record()
 
     def _update(self, loss: torch.Tensor) -> None:
         grads = list(torch.autograd.grad(loss, self.opt.params))
+        self._mark(2)
         if self.check is not None:
             self.check(loss, grads)
         self.opt.step(grads)
@@ -332,12 +357,15 @@ class _StatsStep(_Step):
         self.cw = class_weights
 
     def __call__(self) -> tuple[None, tuple]:
+        self._mark(0)
         loss, counts = self.adapter.train_stats(
             self.variables, self.bundle, self.tgt, self.cw, self.logit_transform,
             confusion=self.with_confusion,
         )
+        self._mark(1)
         self._update(loss)
         self._record([loss.detach().double(), *(c.double() for c in counts)])
+        self._mark(3)
         return None, ()
 
 
@@ -351,7 +379,8 @@ class _EagerChunks:
     its (None, ()); ``stats(n)`` is the stats rows of the last n steps,
     oldest first (the steps this runner took: a resumed run's first step is
     its first). ``resumed``: (epoch, results rows) of the checkpoint the
-    step's state was restored from, or None.
+    step's state was restored from, or None. A chunk's steps are one
+    ``loop.steps`` span, with their count ``n``.
     """
 
     def __init__(self, step: _Step, plain: _Step | None = None):
@@ -368,9 +397,20 @@ class _EagerChunks:
         return out
 
     def _run(self, n: int) -> tuple[torch.Tensor, object]:
-        for _ in range(n):
-            out = self.step()
+        with span("loop.steps", n=n):
+            for _ in range(n):
+                out = self.step()
         return out
+
+    def phase_ms(self) -> dict[str, float]:
+        """The last step's forward (with the loss), backward and update
+        milliseconds on the card, from its timing events (``train_chunks``
+        with ``phase_events``); synchronise before reading."""
+        ev = self.step.events
+        if ev is None:
+            raise ValueError("the step records no phase events: train_chunks(phase_events=True)")
+        return {name: a.elapsed_time(b)
+                for name, a, b in zip(("forward", "backward", "update"), ev, ev[1:])}
 
     def stats(self, n: int) -> torch.Tensor:
         cap = self.step.capacity
@@ -405,7 +445,9 @@ class _CapturedChunks(_EagerChunks):
     no kernel issued from Python between them. The kernels' launch counts
     follow what ran: the capture's calls count nothing, each replay adds the
     launches the capture recorded. A host sync in the step, or a capture or
-    replay that fails, raises; nothing falls back to the eager steps.
+    replay that fails, raises; nothing falls back to the eager steps. The
+    warm-up step and the capture are the ``loop.capture`` span; the
+    replays of a chunk one ``loop.steps`` span.
     """
 
     def __init__(self, step: _Step, plain: _Step | None = None):
@@ -416,13 +458,15 @@ class _CapturedChunks(_EagerChunks):
 
     def _run(self, n: int) -> tuple[torch.Tensor, object]:
         if self.graph is None:
-            out = self._warm_up()
-            self._capture()
+            with span("loop.capture"):
+                out = self._warm_up()
+                self._capture()
             n -= 1
             if n == 0:
                 return out
-        for _ in range(n):
-            self.graph.replay()
+        with span("loop.steps", n=n):
+            for _ in range(n):
+                self.graph.replay()
         self.launches.replayed(n)
         return self.out
 
@@ -504,6 +548,7 @@ def _lp_target(train: LinkPredSplit) -> np.ndarray:
     return train.target[train.edges[0] != 0]
 
 
+@spanned("loop.prepare")
 def train_chunks(
     adapter: ModelAdapter,
     train: EdgeSplit | LinkPredSplit | np.ndarray,
@@ -515,6 +560,7 @@ def train_chunks(
     variables: dict | None = None,
     checkpointer=None,
     capacity: int | None = None,
+    phase_events: bool = False,
 ) -> tuple[_EagerChunks, object, dict]:
     """The step that a task trains on the adapter's train bundle, as the
     JAX package's ``_make_steps`` (and ``run_regression``'s chunk body)
@@ -532,7 +578,12 @@ def train_chunks(
     the window's forward without grad, eager. The arguments ``generator``,
     ``variables`` and ``checkpointer``: as ``_prepare`` takes them; the
     ``variables`` returned are the params the step trains and the buffers.
+    ``phase_events`` (a card's adapter only; off it raises ``ValueError``):
+    the step records its phases' timing events (``_Step``), read by
+    ``chunks.phase_ms()``. The ``loop.prepare`` span.
     """
+    if phase_events and adapter.device.type != "cuda":
+        raise ValueError(f"phase events time the step on a CUDA device, not {adapter.device}")
     transform = None
     if task == "edge_cls":
         if loss_type != "softmax":
@@ -562,7 +613,7 @@ def train_chunks(
     step = _Step(adapter, variables, opt, loss, target,
                  with_confusion=task == "edge_cls",
                  capacity=capacity if capacity is not None else max(cfg.n_epochs, 1),
-                 logit_transform=transform)
+                 logit_transform=transform, phase_events=phase_events)
     # Plain epochs train on the adapter's train_stats where it has one, as
     # the JAX package's chunk_step does (tmgcn_tpu/train/loop.py:112-140).
     plain = None
@@ -580,12 +631,15 @@ def train_chunks(
 
 def _save(checkpointer, epoch: int, chunks: _EagerChunks, results: np.ndarray) -> None:
     """Epoch ``epoch``'s params, optimizer state, rows and buffers, read
-    after the chunk's steps (outside the captured step)."""
+    after the chunk's steps (outside the captured step): the
+    ``loop.checkpoint`` span."""
     v = chunks.step.variables
-    checkpointer.save(epoch, v["params"], chunks.step.opt.state_dict(), results,
-                      buffers=v["buffers"])
+    with span("loop.checkpoint", epoch=epoch):
+        checkpointer.save(epoch, v["params"], chunks.step.opt.state_dict(), results,
+                          buffers=v["buffers"])
 
 
+@spanned(TRIAL)
 def run_edge_classification(
     adapter: ModelAdapter,
     splits: dict[str, EdgeSplit],
@@ -619,25 +673,29 @@ def run_edge_classification(
         ep = step + 1
     while ep < cfg.n_epochs:
         # Evaluation epoch: one step, then score val/test.
-        _, carry = chunks(1)
-        loss, tp, fp, fn = chunks.stats(1)[0].cpu().numpy()
-        p_tr, r_tr, f1_tr = _f1(tp, fp, fn)
-        scored = {}
-        for wname in ("val", "test"):
-            out, carry = eval_forward(wname, carry)
-            s = splits[wname]
-            out_np = out.cpu().numpy()[s.eval_mask]
-            tgt_np = s.target[s.eval_mask]
-            p, r, f1 = M.precision_recall_f1(np.argmax(out_np, axis=1), tgt_np)
-            l = M.weighted_ce_loss_np(out_np, tgt_np, np.asarray(class_weights))
-            scored[wname] = (p, r, f1, l)
-        val_stats, test_stats = scored["val"], scored["test"]
-        results[ep] = [p_tr, r_tr, f1_tr, loss, *val_stats, *test_stats]
-        if cfg.verbose:
-            print(
-                f"ep {ep}: train f1 {f1_tr:.4f} loss {loss:.4f} | "
-                f"val f1 {val_stats[2]:.4f} | test f1 {test_stats[2]:.4f}"
-            )
+        with span("loop.eval", epoch=ep):
+            _, carry = chunks(1)
+            with span("loop.fetch", n=1):
+                loss, tp, fp, fn = chunks.stats(1)[0].cpu().numpy()
+            p_tr, r_tr, f1_tr = _f1(tp, fp, fn)
+            scored = {}
+            for wname in ("val", "test"):
+                s = splits[wname]
+                with span("loop.eval.forward", window=wname):
+                    out, carry = eval_forward(wname, carry)
+                    out_np = out.cpu().numpy()[s.eval_mask]
+                with span("loop.eval.score"):
+                    tgt_np = s.target[s.eval_mask]
+                    p, r, f1 = M.precision_recall_f1(np.argmax(out_np, axis=1), tgt_np)
+                    l = M.weighted_ce_loss_np(out_np, tgt_np, np.asarray(class_weights))
+                scored[wname] = (p, r, f1, l)
+            val_stats, test_stats = scored["val"], scored["test"]
+            results[ep] = [p_tr, r_tr, f1_tr, loss, *val_stats, *test_stats]
+            if cfg.verbose:
+                print(
+                    f"ep {ep}: train f1 {f1_tr:.4f} loss {loss:.4f} | "
+                    f"val f1 {val_stats[2]:.4f} | test f1 {test_stats[2]:.4f}"
+                )
         if checkpointer is not None:
             _save(checkpointer, ep, chunks, results)
         ep += 1
@@ -646,15 +704,19 @@ def run_edge_classification(
         k = min(cfg.eval_every - 1, cfg.n_epochs - ep)
         if k > 0:
             chunks(k, plain=True)
-            for i, (loss_i, tp_i, fp_i, fn_i) in enumerate(chunks.stats(k).cpu().numpy()):
-                p_tr, r_tr, f1_tr = _f1(tp_i, fp_i, fn_i)
-                results[ep + i] = [p_tr, r_tr, f1_tr, loss_i, *val_stats, *test_stats]
+            with span("loop.fetch", n=k):
+                stats = chunks.stats(k).cpu().numpy()
+            with span("loop.rows"):
+                for i, (loss_i, tp_i, fp_i, fn_i) in enumerate(stats):
+                    p_tr, r_tr, f1_tr = _f1(tp_i, fp_i, fn_i)
+                    results[ep + i] = [p_tr, r_tr, f1_tr, loss_i, *val_stats, *test_stats]
             ep += k
 
     return results, {"params": _tree_map(torch.Tensor.detach, variables["params"]),
                      "buffers": variables["buffers"]}
 
 
+@spanned(TRIAL)
 def run_link_prediction(
     adapter: ModelAdapter,
     splits: dict[str, LinkPredSplit],
@@ -710,41 +772,46 @@ def run_link_prediction(
         test_stats = tuple(rows[step, width - n_stats :])
         ep = step + 1
     while ep < cfg.n_epochs:
-        out_train, carry = chunks(1)
-        loss = float(chunks.stats(1)[0, 0])
-        # The step's logits are already [p, 1-p] under loss_type="sigmoid";
-        # _pairs maps them again, so train is scored on 4 columns, as the
-        # JAX package scores it (tmgcn_tpu/train/loop.py:316).
-        out_tr = _pairs(out_train.cpu().numpy())
-        if use_f1:
-            tr_stats = M.precision_recall_f1(np.argmax(out_tr, 1), tgt_train)
-        else:
-            tr_stats = M.map_mrr(out_tr, tgt_train, train_edges)
-        scored = {}
-        for wname in ("val", "test"):
-            out, carry = eval_forward(wname, carry)
-            s = splits[wname]
-            out_np = _pairs(out.cpu().numpy())
-            if s.n_eval_tail is not None:
-                # Same-block windows: score only the new tail slices.
-                K = s.n_eval_tail
-                out_np, tgt_np, metric_edges = out_np[-K:], s.target[-K:], s.edges[:, -K:]
-            else:
-                # Disjoint windows: score every model edge.
-                keep = s.edges[0] != 0
-                tgt_np, metric_edges = s.target[keep], s.edges[:, keep]
-            l = M.weighted_ce_loss_np(out_np, tgt_np, np.asarray(class_weights))
-            if use_f1:
-                scored[wname] = (*M.precision_recall_f1(np.argmax(out_np, 1), tgt_np), l)
-            else:
-                scored[wname] = (*M.map_mrr(out_np, tgt_np, metric_edges), l)
-        val_stats, test_stats = scored["val"], scored["test"]
-        results[ep] = [*tr_stats, loss, *val_stats, *test_stats]
-        if cfg.verbose:
-            print(
-                f"ep {ep}: train {tr_stats} loss {loss:.4f} | "
-                f"val {val_stats[0]:.4f} | test {test_stats[0]:.4f}"
-            )
+        with span("loop.eval", epoch=ep):
+            out_train, carry = chunks(1)
+            with span("loop.fetch", n=1):
+                loss = float(chunks.stats(1)[0, 0])
+                # The step's logits are already [p, 1-p] under loss_type="sigmoid";
+                # _pairs maps them again, so train is scored on 4 columns, as the
+                # JAX package scores it (tmgcn_tpu/train/loop.py:316).
+                out_tr = _pairs(out_train.cpu().numpy())
+            with span("loop.eval.score"):
+                if use_f1:
+                    tr_stats = M.precision_recall_f1(np.argmax(out_tr, 1), tgt_train)
+                else:
+                    tr_stats = M.map_mrr(out_tr, tgt_train, train_edges)
+            scored = {}
+            for wname in ("val", "test"):
+                s = splits[wname]
+                with span("loop.eval.forward", window=wname):
+                    out, carry = eval_forward(wname, carry)
+                    out_np = _pairs(out.cpu().numpy())
+                with span("loop.eval.score"):
+                    if s.n_eval_tail is not None:
+                        # Same-block windows: score only the new tail slices.
+                        K = s.n_eval_tail
+                        out_np, tgt_np, metric_edges = out_np[-K:], s.target[-K:], s.edges[:, -K:]
+                    else:
+                        # Disjoint windows: score every model edge.
+                        keep = s.edges[0] != 0
+                        tgt_np, metric_edges = s.target[keep], s.edges[:, keep]
+                    l = M.weighted_ce_loss_np(out_np, tgt_np, np.asarray(class_weights))
+                    if use_f1:
+                        scored[wname] = (*M.precision_recall_f1(np.argmax(out_np, 1), tgt_np), l)
+                    else:
+                        scored[wname] = (*M.map_mrr(out_np, tgt_np, metric_edges), l)
+            val_stats, test_stats = scored["val"], scored["test"]
+            results[ep] = [*tr_stats, loss, *val_stats, *test_stats]
+            if cfg.verbose:
+                print(
+                    f"ep {ep}: train {tr_stats} loss {loss:.4f} | "
+                    f"val {val_stats[0]:.4f} | test {test_stats[0]:.4f}"
+                )
         if checkpointer is not None:
             _save(checkpointer, ep, chunks, results)
         ep += 1
@@ -753,15 +820,18 @@ def run_link_prediction(
         k = min(cfg.eval_every - 1, cfg.n_epochs - ep)
         if k > 0:
             chunks(k, plain=True)
-            losses = chunks.stats(k)[:, 0].cpu().numpy()
-            for i in range(k):
-                results[ep + i] = [*tr_stats, losses[i], *val_stats, *test_stats]
+            with span("loop.fetch", n=k):
+                losses = chunks.stats(k)[:, 0].cpu().numpy()
+            with span("loop.rows"):
+                for i in range(k):
+                    results[ep + i] = [*tr_stats, losses[i], *val_stats, *test_stats]
             ep += k
 
     return results, {"params": _tree_map(torch.Tensor.detach, variables["params"]),
                      "buffers": variables["buffers"]}
 
 
+@spanned(TRIAL)
 def run_regression(
     adapter: ModelAdapter,
     targets: dict[str, np.ndarray],
@@ -796,7 +866,8 @@ def run_regression(
     while ep < cfg.n_epochs:
         k = min(chunk, cfg.n_epochs - ep)
         chunks(k)
-        losses[ep : ep + k] = chunks.stats(k)[:, 0].cpu().numpy()
+        with span("loop.fetch", n=k):
+            losses[ep : ep + k] = chunks.stats(k)[:, 0].cpu().numpy()
         if cfg.verbose:
             print(f"ep {ep + k - 1}: train mse {losses[ep + k - 1]:.5f}")
         ep += k
@@ -804,10 +875,14 @@ def run_regression(
             _save(checkpointer, ep - 1, chunks, losses)
 
     result = {"train_loss": losses}
-    for wname in ("val", "test"):
-        out, _ = eval_forward(wname, ())
-        l1, ratio = M.l1_and_ratio(out.cpu().numpy(), targets[wname])
-        result[f"{wname}_l1"] = l1
-        result[f"{wname}_l1_ratio"] = ratio
+    with span("loop.eval", epoch=cfg.n_epochs - 1):
+        for wname in ("val", "test"):
+            with span("loop.eval.forward", window=wname):
+                out, _ = eval_forward(wname, ())
+                out_np = out.cpu().numpy()
+            with span("loop.eval.score"):
+                l1, ratio = M.l1_and_ratio(out_np, targets[wname])
+            result[f"{wname}_l1"] = l1
+            result[f"{wname}_l1_ratio"] = ratio
     return result, {"params": _tree_map(torch.Tensor.detach, variables["params"]),
                     "buffers": variables["buffers"]}

@@ -20,8 +20,14 @@ loop up with one run, then:
     ``timed_chunks`` (bench.py's rule);
   * traces a warm captured chunk of TRACED_EPOCHS plain epochs with
     ``torch.profiler`` and prints the device time by kernel, the device's
-    busy share of the wall time (kernel time over wall time), and the host
-    time by operator.
+    busy share of the traced run (the union of its device operations'
+    intervals over the run's range, one trace), and the host time by
+    operator;
+  * times the captured step's phases on the device: a chunk built with
+    ``train_chunks(phase_events=True)`` (timing events recorded in the
+    graph), PHASE_REPLAYS single plain epochs each waited for, the median
+    forward (with the loss), backward (``torch.autograd.grad``) and update
+    (with the stats) milliseconds (``step_phase_ms``).
 
 Prints one JSON line at the end; needs a card.
 """
@@ -46,6 +52,7 @@ DATA_DIR = "data/chess"
 EPOCHS = 200
 REPEATS = 11
 TRACED_EPOCHS = 21
+PHASE_REPLAYS = 21
 PRESETS = {
     "chess_tmgcn_cls": {"spmm_impl": "pallas"},
     "chess_tmgcn2_cls": {"spmm_impl": "pallas"},
@@ -61,14 +68,16 @@ PRESETS = {
 }
 
 
-def chunk_runner(exp, tcfg, alpha: float, generator: torch.Generator, eager: bool = False):
+def chunk_runner(exp, tcfg, alpha: float, generator: torch.Generator, eager: bool = False,
+                 phase_events: bool = False):
     """``run(n)``: n plain epochs of the step that ``run_trial`` trains at
     ``alpha`` (``configs.build.trial_chunks``, parameters drawn from
     ``generator``), returning the last one's stats row on the device.
     Captured, as the loop runs them on a card; with ``eager``, the loop's
     eager chunks of the same step, the reference the captured ones are held
-    to."""
-    chunks = trial_chunks(exp, tcfg, alpha, generator, capacity=1)
+    to. With ``phase_events``, ``run.phase_ms()`` is the chunks'
+    ``phase_ms``: the last step's phases."""
+    chunks = trial_chunks(exp, tcfg, alpha, generator, capacity=1, phase_events=phase_events)
     if eager:
         chunks = loop._EagerChunks(chunks.step, chunks.plain and chunks.plain.step)
 
@@ -76,6 +85,7 @@ def chunk_runner(exp, tcfg, alpha: float, generator: torch.Generator, eager: boo
         chunks(n, plain=True)
         return chunks.stats(1)
 
+    run.phase_ms = chunks.phase_ms
     return run
 
 
@@ -83,8 +93,9 @@ def build_runner(preset: str, spmm_impl: str | None = None):
     """(cfg, run, make_chunk) for one preset on the card: the experiment is
     built once; ``run(n_epochs, eval_every=cfg.eval_every)`` trains from the
     preset's initial parameters each time, through the loop users run, at
-    the preset's first alpha (none for regression); ``make_chunk(eager=False)`` is
-    ``chunk_runner`` on the same adapter, alpha and initial parameters."""
+    the preset's first alpha (none for regression); ``make_chunk(eager=False,
+    phase_events=False)`` is ``chunk_runner`` on the same adapter, alpha and
+    initial parameters."""
     if preset not in PRESETS:
         raise SystemExit(f"profile_slice profiles one of {sorted(PRESETS)}, not {preset!r}")
     if not torch.cuda.is_available():
@@ -98,9 +109,9 @@ def build_runner(preset: str, spmm_impl: str | None = None):
         tcfg = dataclasses.replace(train_config(cfg, n_epochs), eval_every=eval_every)
         return run_trial(exp, tcfg, alpha, torch.Generator().manual_seed(cfg.seed))
 
-    def make_chunk(eager=False):
+    def make_chunk(eager=False, phase_events=False):
         return chunk_runner(exp, train_config(cfg), alpha,
-                            torch.Generator().manual_seed(cfg.seed), eager)
+                            torch.Generator().manual_seed(cfg.seed), eager, phase_events)
 
     return cfg, run, make_chunk
 
@@ -148,24 +159,54 @@ def timed_chunks(runs: dict, n_timed: int, rounds: int = 5, min_round_s: float =
     return out
 
 
+RUN_RANGE = "profile_slice.run"
+
+
+def busy_share(events) -> float:
+    """The share of the ``RUN_RANGE`` host range in which some operation ran
+    on the device: the union of the device operations' intervals (user
+    annotations' device copies left out: they span kernels), clipped to the
+    range, over its length."""
+    run = next(e.time_range for e in events if e.name == RUN_RANGE
+               and e.device_type != torch.autograd.DeviceType.CUDA)
+    lo, hi = float(run.start), float(run.end)
+    spans = sorted(
+        (max(float(e.time_range.start), lo), min(float(e.time_range.end), hi)) for e in events
+        if e.device_type == torch.autograd.DeviceType.CUDA
+        and not getattr(e, "is_user_annotation", False)
+    )
+    busy, at = 0.0, lo
+    for a, b in spans:
+        a = max(a, at)
+        if b > a:
+            busy += b - a
+            at = b
+    return busy / (hi - lo)
+
+
 def trace(run_epochs, n_epochs: int = TRACED_EPOCHS, top: int = 8) -> tuple[dict, object]:
     """``run_epochs()``, a warm run of n_epochs, traced: device ms per
-    epoch, the device's busy share of the wall time, host launch calls per
-    epoch and the ``top`` kernels' device ms; and the profiler's averages.
+    epoch, the device's busy share of the run, host launch calls per epoch
+    and the ``top`` kernels' device ms; and the profiler's averages.
 
     Device time is the profiler's kernel time: on an H100 it sees the
     kernels of a replayed CUDA graph. The span of CUDA events recorded
     around the run is reported beside it, ``event_ms_per_profiled_epoch``
-    (the device's wall span, idle gaps included)."""
+    (the device's wall span, idle gaps included). The busy share is 1 less
+    the idle share of the run's ``RUN_RANGE`` (which ends after a
+    synchronise): the union of the device operations' intervals inside it
+    over its length, both on the profiler's clock, so overlapping kernels
+    count once and it cannot pass 1."""
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     with torch.profiler.profile(activities=acts) as prof:
-        t0 = time.perf_counter()
-        start.record()
-        run_epochs()
-        end.record()
-        torch.cuda.synchronize()
-        wall_us = 1e6 * (time.perf_counter() - t0)
+        with torch.profiler.record_function(RUN_RANGE):
+            t0 = time.perf_counter()
+            start.record()
+            run_epochs()
+            end.record()
+            torch.cuda.synchronize()
+            wall_us = 1e6 * (time.perf_counter() - t0)
     event_us = 1e3 * start.elapsed_time(end)
     avg = prof.key_averages()
     # Kernels (and copies) are the events on the device itself; operator
@@ -187,7 +228,7 @@ def trace(run_epochs, n_epochs: int = TRACED_EPOCHS, top: int = 8) -> tuple[dict
         "profiled_wall_ms": wall_us / 1e3,
         "device_ms_per_profiled_epoch": device_us / 1e3 / n_epochs,
         "event_ms_per_profiled_epoch": event_us / 1e3 / n_epochs,
-        "device_busy_share": device_us / wall_us,
+        "device_busy_share": busy_share(prof.events()),
         # Host-side kernel and graph launches (every kernel, library or ours).
         "launch_calls_per_profiled_epoch": sum(
             e.count for e in avg if e.key in ("cudaLaunchKernel", "cuLaunchKernel", "cuLaunchKernelEx")
@@ -197,6 +238,20 @@ def trace(run_epochs, n_epochs: int = TRACED_EPOCHS, top: int = 8) -> tuple[dict
         ) / n_epochs,
         "device_ms_by_kernel": dict(sorted(by_kernel.items(), key=lambda kv: -kv[1])[:top]),
     }, avg
+
+
+def step_phases(run, n: int = PHASE_REPLAYS) -> dict:
+    """The median forward, backward and update milliseconds of ``n``
+    single epochs of ``run`` (a ``chunk_runner`` with ``phase_events``),
+    each waited for before its events are read; the first epoch, the
+    warm-up step and the capture, is left out."""
+    run(1).cpu()
+    readings = []
+    for _ in range(n):
+        run(1).cpu()
+        torch.cuda.synchronize()
+        readings.append(run.phase_ms())
+    return {phase: float(np.median([r[phase] for r in readings])) for phase in readings[0]}
 
 
 def card() -> str:
@@ -228,6 +283,7 @@ def main(argv=None) -> int:
     traced, avg = trace(lambda: chunk(TRACED_EPOCHS).cpu(), TRACED_EPOCHS)
     print(avg.table(sort_by="self_device_time_total", row_limit=12))
     print(avg.table(sort_by="self_cpu_time_total", row_limit=12))
+    phases = step_phases(make_chunk(phase_events=True))
     result = {
         "preset": preset,
         "spmm_impl": cfg.spmm_impl,
@@ -243,6 +299,8 @@ def main(argv=None) -> int:
         },
         "plain_epoch_ms": chunks,
         **traced,
+        "step_phase_ms": phases,
+        "step_phase_replays": PHASE_REPLAYS,
     }
     print(json.dumps(result))
     return 0
