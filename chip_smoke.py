@@ -66,6 +66,15 @@ non-zero, and nothing falls back to the CPU:
                transposed packing, the _fwdbwd record's); K1 f32 and fast
                timed at both workloads and K3 fast and K3 f32 at r1's tiled
                packing, beside bound and torch.sparse.mm;
+  6c. scan  — WD-GCN's LSTM scan kernel pair (tmgcn_torch/kernels/
+               csrc/lstm_scan.cu) at the chess shape (T 80, F 6, N 7,301)
+               against its plain version, the eager scan on the card
+               (hoisted and rematerialised), on the main path's strided
+               inputs (Y a view of (F, T, N) memory, dZ a transpose): Z
+               and the gradients of Y, W, U, b, a bitwise repeat; forward
+               + backward and the evaluation forward timed beside the
+               eager scan and the byte bound. Its launches are counted on
+               the main paths (7), as the K kernels' are;
   7. paths   — the main paths, each with every launch count set to 0 just
                before it and read just after. Every training step on the
                card is a replay of one captured CUDA graph (train/loop.py);
@@ -78,7 +87,12 @@ non-zero, and nothing falls back to the CPU:
                   against the CPU's plain path;
                b. ``run_experiment`` of chess_wdgcn_cls (the preset's
                   spmm_impl "jnp"), 200 epochs: 200 K1 launches (the
-                  readout plan's backward, one per step), 0 K2; warm rerun
+                  readout plan's backward, one per step), 0 K2; the LSTM
+                  scan's forward, backward and reduction once a step and
+                  its forward for val and test at each of the 2
+                  evaluations (204, 200, 200; so too in c; every other
+                  WD-GCN path one backward and reduction a step, every
+                  other family none); warm rerun
                   with the same rows; vs eager; 5 epochs against the CPU's
                   plain path;
                c. ``python -m tmgcn_torch.cli run chess_wdgcn_cls
@@ -1544,6 +1558,84 @@ def phase_fast(torch, np, tk) -> tuple[dict, dict, dict, dict]:
     return k1_fast, k3_fast, k1_f32, counts
 
 
+def _scan_grads(torch, fn, p, h0, c0, Yt, G) -> list:
+    """The scan's output and the gradients of Y and every gate's W, U, b."""
+    leaves = {k: v.clone().requires_grad_(True) for k, v in p.items()}
+    Y = Yt.clone().requires_grad_(True)
+    out = fn(leaves, h0, c0, Y)
+    (out * G).sum().backward()
+    return [out.detach(), Y.grad, *(leaves[k].grad for k in sorted(leaves))]
+
+
+def phase_lstm_scan(torch) -> dict:
+    """WD-GCN's LSTM scan kernel pair at the chess shape against its plain
+    version, the eager scan on the card, on the inputs the main path gives
+    it: Y the GCN layer's (T, F, N) view of (F, T, N) memory, dZ the
+    readout's transposed gradient. Timed beside the eager scan."""
+    from tmgcn_torch.kernels import scan_cuda
+    from tmgcn_torch.models import wdgcn as twd
+
+    T, F, N = 80, 6, 7301
+    dev = torch.device(DEVICE)
+    p, bufs = twd._init_lstm(torch.Generator().manual_seed(0), F, torch.float32)
+    p = {k: v.to(dev) for k, v in p.items()}
+    h0, c0 = bufs["h_init"].to(dev), bufs["c_init"].to(dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    Yt = torch.relu(torch.randn(F, T, N, device=dev, generator=gen)).transpose(0, 1)
+    G = torch.randn(T, N, F, device=dev, generator=gen)
+    dZ = G.transpose(1, 2)  # the gradient of lstm_scan_t's (T, N, F) output, as it arrives
+    check(not Yt.is_contiguous() and not dZ.is_contiguous(),
+          "LSTM scan: Y and dZ are expected to be strided views")
+    got = _scan_grads(torch, twd.lstm_scan_t, p, h0, c0, Yt, G)
+    again = _scan_grads(torch, twd.lstm_scan_t, p, h0, c0, Yt, G)
+    check(all(torch.equal(a, b) for a, b in zip(got, again)), "LSTM scan: two runs differ")
+    max_err = 0.0
+    with mock.patch.object(twd, "_on_kernel", lambda *a: False):
+        for remat in (False, True):
+            plain = functools.partial(twd.lstm_scan_t, remat=remat)
+            want = _scan_grads(torch, plain, p, h0, c0, Yt, G)
+            torch.cuda.synchronize()
+            for name, a, b in zip(["Z", "dY", *sorted(p)], got, want):
+                err, tol = _max_err(a, b)
+                check(err <= tol, f"LSTM scan {name} (eager remat={remat}): max abs err "
+                                  f"{err} > {tol}")
+                max_err = max(max_err, err)
+    print(f"LSTM scan at T={T} F={F} N={N}, Y a view of (F, T, N) memory and dZ a transpose: "
+          f"Z and the gradients of Y and each gate's W, U, b within {ATOL} * max(1, |ref|) of "
+          f"the eager scan (hoisted and remat), max abs err {max_err:.3e}; two runs bitwise equal")
+
+    weights = twd._stacked_weights(p, torch.float32)
+
+    def kernels():  # the forward that keeps C, the backward and its reduction
+        Z, C = scan_cuda._forward(Yt, *weights, h0, c0, cells=True)
+        scan_cuda._backward(Yt, *weights, h0, c0, Z, C, dZ)
+
+    ms = _time_ms(torch, kernels)
+    with torch.no_grad():
+        eval_ms = _time_ms(torch, lambda: scan_cuda.lstm_scan_cuda(Yt, *weights, h0, c0))
+    with mock.patch.object(twd, "_on_kernel", lambda *a: False):
+        plain_ms = _time_ms(torch, lambda: _scan_grads(torch, twd.lstm_scan_t, p, h0, c0, Yt, G))
+    # Each (T, F, N) tensor crosses device memory once: the forward reads Y
+    # and writes Z and C, the backward reads Y, Z, C, dZ and writes dY.
+    # Operations: the forward's two F x 4F dots a node-step; the backward
+    # recomputes them and adds dY, dh and the dW, dU sums.
+    plane = 4 * T * F * N
+    nbytes, flops = 8 * plane, 4 * 2 * (2 * F * 4 * F) * T * N
+    bound_ms, bound_by = _bound_ms(nbytes, flops)
+    fwd_bound_ms, _ = _bound_ms(2 * plane, 2 * (2 * F * 4 * F) * T * N)
+    print(f"LSTM scan forward + backward: kernels ms (median, CUDA events, L2 flushed) {ms:.6f}, "
+          f"plain version (the eager scan of wdgcn.py, hoisted, with autograd) {plain_ms:.6f}, "
+          f"bound {bound_ms:.6f} ({bound_by}: {nbytes} bytes, {flops} operations)")
+    print(f"LSTM scan forward alone (no gradient, no cell states): {eval_ms:.6f} ms, bound "
+          f"{fwd_bound_ms:.6f}")
+    return {"name": "LSTM scan forward + backward + reduction", "route": "cuda",
+            "source": "tmgcn_torch/kernels/csrc/lstm_scan.cu",
+            "replaces": "none (lax.scan in tmgcn_tpu/models/wdgcn.py)",
+            "shape": f"T={T} F={F} N={N}", "max_abs_err": max_err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": None, "forward_ms": eval_ms}
+
+
 def _check_rows(np, res, what: str) -> None:
     check(res.shape[1] == 12, f"{what}: results are not (epochs, 12)")
     check(bool(np.all(np.isfinite(res[:, [3, 7, 11]]))), f"{what}: a loss is not finite")
@@ -1568,13 +1660,32 @@ def _check_lp_rows(np, res, what: str) -> None:
           f"{what}: MAP or MRR outside [0, 1]")
 
 
+class Launches(tuple):
+    """One path's launch counts in COUNTERS order, equal to the plain tuple
+    of them; ``.scan`` holds its LSTM scan launches (SCAN_COUNTERS order)."""
+
+    scan = (0, 0, 0)
+
+
+# The LSTM scan pair's counters on scan_cuda.lstm_scan_cuda: the forward,
+# the backward scan and the backward's reduction.
+SCAN_COUNTERS = ("launches", "launches_backward", "launches_reduce")
+
+
 def _counted(tk, fn):
-    """Run fn with every launch count set to 0; (result, the counts in
-    COUNTERS order: K1, K1 bf16, K2, K3, K3 bf16, K1 fast, K3 fast)."""
+    """Run fn with every launch count set to 0, the LSTM scan's too;
+    (result, the counts in COUNTERS order: K1, K1 bf16, K2, K3, K3 bf16,
+    K1 fast, K3 fast, as a Launches whose ``.scan`` is the scan's)."""
+    from tmgcn_torch.kernels.scan_cuda import lstm_scan_cuda as scan
+
     for fn_name, counter in COUNTERS:
         setattr(getattr(tk, fn_name), counter, 0)
+    for counter in SCAN_COUNTERS:
+        setattr(scan, counter, 0)
     out = fn()
-    return out, tuple(getattr(getattr(tk, fn_name), counter) for fn_name, counter in COUNTERS)
+    launches = Launches(getattr(getattr(tk, fn_name), counter) for fn_name, counter in COUNTERS)
+    launches.scan = tuple(getattr(scan, counter) for counter in SCAN_COUNTERS)
+    return out, launches
 
 
 @contextlib.contextmanager
@@ -1784,6 +1895,17 @@ def phase_wdgcn_chess(torch, np, tk, e_train: int) -> dict[str, tuple[int, int]]
     print(f"cli run chess_wdgcn_cls --spmm-impl pallas: {EPOCHS} epochs in "
           f"{time.perf_counter() - t0:.3f} s, {COUNTED} launches {launches}")
     counts["cli chess_wdgcn_cls --spmm-impl pallas"] = launches
+    # The LSTM scan pair: a forward, a backward and a reduction a step, and
+    # a forward for val and one for test at each evaluation epoch.
+    n_evals = -(-EPOCHS // cfg.eval_every)
+    scan = (EPOCHS + 2 * n_evals, EPOCHS, EPOCHS)
+    for path, launches in counts.items():
+        check(launches.scan == scan,
+              f"{path}: LSTM scan launches (forward, backward, reduction) {launches.scan}, "
+              f"expected {scan} ({EPOCHS} steps, {n_evals} evaluations)")
+    print(f"chess_wdgcn_cls {EPOCHS} epochs (and the CLI's): LSTM scan launches forward "
+          f"{scan[0]} ({EPOCHS} steps, {2 * n_evals} evaluation forwards), backward {scan[1]}, "
+          f"reduction {scan[2]}")
     return counts
 
 
@@ -3751,6 +3873,8 @@ def _phases(np, torch, tk, scale_bench) -> int:
     with _timed("fast tiers"):
         k1_fast, k3_fast, k1_spmm_bench, fast_counts = phase_fast(torch, np, tk)
         k1.update(k1_spmm_bench)
+    with _timed("LSTM scan"):
+        scan = phase_lstm_scan(torch)
     with _timed("paths: TM-GCN 1 layer, WD-GCN chess"):
         by_path = {"chess_tmgcn_cls pallas": phase_tmgcn(torch, np, tk, e_train)}
         by_path.update(phase_wdgcn_chess(torch, np, tk, e_train))
@@ -3796,6 +3920,20 @@ def _phases(np, torch, tk, scale_bench) -> int:
         k["launches"] = sum(c[i] for c in by_path.values())
         k["launches_by_path"] = {path: c[i] for path, c in by_path.items() if c[i]}
         check(k["launches"] > 0, f"{k['name']} was launched no time on the main paths")
+    # The LSTM scan on each main path: a forward, a backward and a reduction
+    # a training step and a forward an evaluation window on every WD-GCN
+    # path (chess_wdgcn_cls's exact counts: phase_wdgcn_chess), none elsewhere.
+    scan_by_path = {path: getattr(c, "scan", (0, 0, 0)) for path, c in by_path.items()}
+    for path, (fwd, bwd, red) in scan_by_path.items():
+        if "wdgcn" in path:
+            check(bwd == red > 0 and fwd >= bwd,
+                  f"{path}: LSTM scan launches (forward, backward, reduction) {(fwd, bwd, red)}, "
+                  "expected one backward and one reduction a step and a forward each")
+        else:
+            check((fwd, bwd, red) == (0, 0, 0), f"{path} launched the LSTM scan: {(fwd, bwd, red)}")
+    scan["launches"] = sum(map(sum, scan_by_path.values()))
+    scan["launches_by_path"] = {path: n for path, n in scan_by_path.items() if any(n)}
+    kernels += (scan,)
     print(f"restricted operator times (chess_tmgcn2_cls train window): "
           f"{json.dumps(restricted['operators'])}")
     print("device ms per captured plain epoch (traced): " + json.dumps(
@@ -3806,7 +3944,8 @@ def _phases(np, torch, tk, scale_bench) -> int:
              "restricted_backward", "kwgcn2_forward", "kwgcn2_backward", "seir_wdgcn_reg",
              "cached_propagation", "restricted_scale_forward", "streamed_group_scale_forward",
              "k1_at_scale_packing_ms", "uci_layer2_forward", "uci_layer2_backward",
-             "readout_backward_ops_ms", "spmm_bench_r1", "spmm_bench_chess2", "auto_picks")
+             "readout_backward_ops_ms", "spmm_bench_r1", "spmm_bench_chess2", "auto_picks",
+             "forward_ms")
     print(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [
         {**{k: kern[k] for k in keys}, **{k: kern[k] for k in extra if k in kern}}

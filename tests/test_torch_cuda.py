@@ -21,6 +21,7 @@ import pytest
 import torch
 
 from tmgcn_torch.core.sparse import TemporalCOO
+from tmgcn_torch.kernels import scan_cuda
 from tmgcn_torch.kernels import spmm_cuda as tk
 from tmgcn_torch.ops import edge_readout as tro
 from tmgcn_torch.ops.spmm import spmm
@@ -509,6 +510,9 @@ def test_link_prediction_on_the_card(cuda_device, case, monkeypatch):
 COUNTERS = [(w, c) for w in (tk.windowed_segment_matmul, tk.windowed_tiled_segment_matmul)
             for c in ("launches", "launches_bf16", "launches_fast")]
 COUNTERS.append((tk.windowed_segment_matmul_t, "launches"))
+# The LSTM scan's kernel pair: forward, backward, the backward's reduction.
+SCAN_COUNTERS = [(scan_cuda.lstm_scan_cuda, c)
+                 for c in ("launches", "launches_backward", "launches_reduce")]
 
 
 def _launches() -> list[int]:
@@ -1065,3 +1069,160 @@ def test_auto_pick_equals_the_other_candidates(cuda_device, kind, F, bf16):
         for got, ref in zip(outs["pick"], outs[k]):
             tol = rel * max(1.0, float(ref.abs().max()))
             assert float((got - ref).abs().max()) <= tol, k
+
+
+# The LSTM scan's kernel pair (kernels/scan_cuda.py, csrc/lstm_scan.cu)
+# against the eager scan on the same card: the same function with the
+# float32 sums of each gate's dots and of the weight gradients (summed over
+# T and N) in another order, so ATOL of the reference's scale.
+SCAN_SHAPES = {"chess": (80, 6, 7301), "F1_ragged": (10, 1, 37), "T1": (1, 4, 33),
+               "F6_ragged": (10, 6, 100), "F4": (10, 4, 1000)}
+
+
+def _scan_counts() -> list[int]:
+    return [getattr(w, c) for w, c in SCAN_COUNTERS]
+
+
+def _scan_problem(device, T: int, F: int, N: int, seed: int = 0):
+    """WD-GCN's LSTM weights and initial states (standard normal, as the
+    model draws them), a non-negative (T, F, N) input as the GCN layer's
+    relu gives, and an upstream gradient."""
+    from tmgcn_torch.models import wdgcn as twd
+
+    p, bufs = twd._init_lstm(torch.Generator().manual_seed(seed), F, torch.float32)
+    rng = np.random.default_rng(seed)
+    Yt = torch.from_numpy(np.maximum(rng.standard_normal((T, F, N)), 0).astype(np.float32))
+    G = torch.from_numpy(rng.standard_normal((T, N, F)).astype(np.float32))
+    return ({k: v.to(device) for k, v in p.items()}, bufs["h_init"].to(device),
+            bufs["c_init"].to(device), Yt.to(device), G.to(device))
+
+
+def _scan_run(fn: str, p, h0, c0, Yt, G, remat):
+    """The output (T, N, F) and the gradients of Y and every gate's W, U, b."""
+    from tmgcn_torch.models import wdgcn as twd
+
+    leaves = {k: v.clone().requires_grad_(True) for k, v in p.items()}
+    Y = (Yt if fn == "lstm_scan_t" else Yt.transpose(1, 2).contiguous()).requires_grad_(True)
+    out = getattr(twd, fn)(leaves, h0, c0, Y, remat=remat)
+    (out * G).sum().backward()
+    return [out.detach(), Y.grad, *(leaves[k].grad for k in sorted(leaves))]
+
+
+@pytest.mark.parametrize("shape", sorted(SCAN_SHAPES))
+@pytest.mark.parametrize("remat", [False, True])
+@pytest.mark.parametrize("fn", ["lstm_scan", "lstm_scan_t"])
+def test_lstm_scan_kernel_matches_eager(cuda_device, fn, remat, shape, monkeypatch):
+    """Z and the gradients of Y, W, U and b: the kernel pair (one forward,
+    one backward and one reduction launch) against the eager scan (hoisted
+    or rematerialised, as ``remat`` says) on the card."""
+    from tmgcn_torch.models import wdgcn as twd
+
+    problem = _scan_problem(cuda_device, *SCAN_SHAPES[shape])
+    before = _scan_counts()
+    got = _scan_run(fn, *problem, remat)
+    torch.cuda.synchronize()
+    assert [a - b for a, b in zip(_scan_counts(), before)] == [1, 1, 1]
+    monkeypatch.setattr(twd, "_on_kernel", lambda p, Y: False)
+    before = _scan_counts()
+    want = _scan_run(fn, *problem, remat)
+    assert _scan_counts() == before
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and g.dtype == w.dtype == torch.float32
+        torch.testing.assert_close(g, w, rtol=0, atol=ATOL * max(1.0, w.abs().max().item()))
+
+
+def test_lstm_scan_kernel_repeats_bitwise(cuda_device):
+    """No float atomics: two forward and backward runs at the chess shape
+    give the same bits."""
+    problem = _scan_problem(cuda_device, *SCAN_SHAPES["chess"])
+    first = _scan_run("lstm_scan_t", *problem, None)
+    again = _scan_run("lstm_scan_t", *problem, None)
+    assert all(torch.equal(a, b) for a, b in zip(first, again))
+
+
+def test_lstm_scan_kernel_reads_strided_views(cuda_device):
+    """Y as the GCN layer's einsum leaves it (a view of (F, T, N) memory)
+    and dZ as the readout's transpose sends it: the kernels read through
+    the strides, the same bits as from contiguous copies."""
+    p, h0, c0, Yt, G = _scan_problem(cuda_device, *SCAN_SHAPES["F6_ragged"])
+    view = Yt.permute(1, 0, 2).contiguous().permute(1, 0, 2)
+    assert not view.is_contiguous()
+    strided = _scan_run("lstm_scan_t", p, h0, c0, view, G, None)
+    dense = _scan_run("lstm_scan_t", p, h0, c0, Yt, G.contiguous(), None)
+    assert all(torch.equal(a, b) for a, b in zip(strided, dense))
+
+
+def test_lstm_scan_kernel_without_a_gradient(cuda_device):
+    """Under no_grad (an evaluation forward) one forward launch, which
+    writes no cell states, and the same Z as with a gradient."""
+    from tmgcn_torch.models import wdgcn as twd
+
+    p, h0, c0, Yt, G = _scan_problem(cuda_device, *SCAN_SHAPES["F6_ragged"])
+    want = _scan_run("lstm_scan_t", p, h0, c0, Yt, G, None)[0]
+    before = _scan_counts()
+    with torch.no_grad():
+        got = twd.lstm_scan_t(p, h0, c0, Yt)
+    assert [a - b for a, b in zip(_scan_counts(), before)] == [1, 0, 0]
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("case", ["float64", "F above the cap"])
+def test_lstm_scan_outside_the_kernel_is_eager_on_the_card(cuda_device, case):
+    """float64, or F above MAX_F: the eager scan on the card, no launch."""
+    from tmgcn_torch.models import wdgcn as twd
+
+    F = scan_cuda.MAX_F + 1 if case == "F above the cap" else 4
+    dtype = torch.float64 if case == "float64" else torch.float32
+    p, bufs = twd._init_lstm(torch.Generator().manual_seed(0), F, dtype, cuda_device)
+    Y = torch.rand(5, F, 40, dtype=dtype, device=cuda_device)
+    before = _scan_counts()
+    out = twd.lstm_scan_t(p, bufs["h_init"], bufs["c_init"], Y)
+    assert _scan_counts() == before and out.shape == (5, 40, F) and out.dtype == dtype
+
+
+def test_lstm_scan_launches_in_a_captured_chunk(cuda_device):
+    """WD-GCN's captured step: one forward, one backward and one reduction
+    launch of the scan a step, counted at each replay (chunks.launches),
+    none for the capture."""
+    from tmgcn_torch.tasks.adapters import make_edge_adapter
+    from tmgcn_torch.train import loop
+
+    model, M, adj, feats, edges, splits = _cls_problem("wdgcn", "pallas")
+    ad = make_edge_adapter(model, adj, feats, edges, M=M, device=cuda_device)
+    chunks, _, _ = loop.train_chunks(ad, splits["train"], np.ones(3) / 3, loop.TrainConfig(),
+                                     capacity=8)
+    assert type(chunks) is loop._CapturedChunks
+    before = _scan_counts()
+    chunks(1)
+    assert [a - b for a, b in zip(_scan_counts(), before)] == [1, 1, 1]
+    recorded = [(w, c) for w, c in chunks.launches.launches if w is scan_cuda.lstm_scan_cuda]
+    assert sorted(c for _, c in recorded) == ["launches", "launches_backward", "launches_reduce"]
+    chunks(3)
+    assert [a - b for a, b in zip(_scan_counts(), before)] == [4, 4, 4]
+
+
+def test_wdgcn_captured_chunk_matches_its_eager_steps(cuda_device, monkeypatch):
+    """Five WD-GCN steps replayed from one captured graph and the same
+    steps issued eagerly, both through the scan kernel pair: the losses
+    and statistics bitwise, the scan launched as often."""
+    from tmgcn_torch.tasks.adapters import make_edge_adapter
+    from tmgcn_torch.train import loop
+
+    model, M, adj, feats, edges, splits = _cls_problem("wdgcn", "jnp")
+    variables = model.init(torch.Generator().manual_seed(0))
+
+    def steps():
+        ad = make_edge_adapter(model, adj, feats, edges, M=M, device=cuda_device)
+        chunks, _, _ = loop.train_chunks(ad, splits["train"], np.ones(3) / 3,
+                                         loop.TrainConfig(), capacity=8, variables=variables)
+        before = _scan_counts()
+        chunks(2)
+        chunks(3)
+        return chunks.stats(5).cpu(), [a - b for a, b in zip(_scan_counts(), before)]
+
+    captured, n_captured = steps()
+    monkeypatch.setattr(loop, "_chunks", loop._EagerChunks)
+    eager, n_eager = steps()
+    assert torch.isfinite(captured).all() and len(torch.unique(captured[:, 0])) == 5
+    assert torch.equal(captured, eager)
+    assert n_captured == n_eager == [5, 5, 5]

@@ -33,7 +33,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "tmgcn_torch_kernels"
-SOURCES = ("windowed_segment_matmul.cu", "windowed_tiled_segment_matmul.cu")
+SOURCES = ("windowed_segment_matmul.cu", "windowed_tiled_segment_matmul.cu", "lstm_scan.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",

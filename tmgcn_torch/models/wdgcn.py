@@ -16,6 +16,11 @@ The scan state runs transposed, (F, N), as in the JAX package, so the
 port computes the same per-gate dot products in the same order. The gate
 pre-activations stack in the order f, j, o, c (W and b) to match the
 recurrent U concatenated as [Uf, Uj, Uo, Uc].
+
+On the card the scan is one hand-written kernel pair (``kernels/scan_cuda``):
+a float32 CUDA input with F up to the kernels' cap takes it, whatever
+``remat`` says; anything else (the CPU, float64, a larger F) runs the eager
+scans below.
 """
 
 from __future__ import annotations
@@ -26,6 +31,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from tmgcn_torch.core.sparse import TemporalCOO
+from tmgcn_torch.kernels import scan_cuda
 from tmgcn_torch.models.common import linear_head, randn
 from tmgcn_torch.ops.edge_readout import edge_readout
 from tmgcn_torch.ops.spmm import spmm
@@ -64,6 +70,24 @@ _PRE_BUDGET_ELEMS = 1 << 28
 def _recurrent_weights(p: dict) -> torch.Tensor:
     """(F, 4F): the recurrent weights stacked on the output axis."""
     return torch.cat([p["Uf"], p["Uj"], p["Uo"], p["Uc"]], dim=1)
+
+
+def _stacked_weights(p: dict, dtype: torch.dtype) -> tuple[torch.Tensor, ...]:
+    """W (F, 4F), U (F, 4F) and b (4F,), each stacked in the order f, j, o, c."""
+    W = torch.cat([p[f"W{g}"].to(dtype) for g in _GATES], dim=1)
+    return W, _recurrent_weights(p), torch.cat([p[f"b{g}"] for g in _GATES])
+
+
+def _on_kernel(p: dict, Y: torch.Tensor) -> bool:
+    """Whether the scan kernel pair takes this input: float32 on the card,
+    F no greater than its register cap."""
+    return Y.is_cuda and Y.dtype == torch.float32 and p["Uf"].shape[0] <= scan_cuda.MAX_F
+
+
+def _lstm_scan_kernel(p: dict, h0, c0, Yt: torch.Tensor) -> torch.Tensor:
+    """(T, F, N) -> (T, F, N) through the kernel pair, which reads Yt
+    through its strides: no copy of a transposed view."""
+    return scan_cuda.lstm_scan_cuda(Yt, *_stacked_weights(p, Yt.dtype), h0, c0)
 
 
 def _cell(z: torch.Tensor, c: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -108,9 +132,7 @@ def _lstm_scan_remat(p: dict, h0, c0, Yt: torch.Tensor) -> torch.Tensor:
     the checkpoint keeps no RNG state (``preserve_rng_state=False``): that
     would read the CUDA generator's state, which a graph capture refuses.
     """
-    W = torch.cat([p[f"W{g}"].to(Yt.dtype) for g in _GATES], dim=1)  # (F, 4F)
-    U = _recurrent_weights(p)
-    b = torch.cat([p[f"b{g}"] for g in _GATES])  # (4F,)
+    W, U, b = _stacked_weights(p, Yt.dtype)
     h, c = _initial_state(h0, c0, Yt.shape[-1])
     Z = []
     for y in Yt.unbind(0):
@@ -133,12 +155,16 @@ def lstm_scan(
 ) -> torch.Tensor:
     """Scan the shared-weight LSTM over (T, N, F) -> (T, N, F).
 
-    remat=None takes the checkpointed path when the hoisted pre-gate stack
-    would exceed ``_PRE_BUDGET_ELEMS``. ``unroll`` is the JAX package's
-    scan-unroll knob and has no meaning in eager PyTorch; it is accepted
-    and ignored.
+    On the card (``_on_kernel``) the kernel pair scans, whatever ``remat``
+    says: it saves Z and the cell states alone, no more than either eager
+    path. Elsewhere remat=None takes the checkpointed path when the hoisted
+    pre-gate stack would exceed ``_PRE_BUDGET_ELEMS``. ``unroll`` is the JAX
+    package's scan-unroll knob and has no meaning in eager PyTorch; it is
+    accepted and ignored.
     """
     del unroll
+    if _on_kernel(params, Y):
+        return _lstm_scan_kernel(params, h0, c0, Y.transpose(1, 2)).transpose(1, 2)
     if remat is None:
         remat = Y.numel() * 4 > _PRE_BUDGET_ELEMS
     if remat:
@@ -154,9 +180,12 @@ def lstm_scan_t(
 
     The gate contributions are batched (F, F) @ (F, N) matmuls on the
     (F, N) layout; one transpose at the end returns the readout's layout.
-    ``unroll`` is accepted and ignored, as in ``lstm_scan``.
+    On the card the kernel pair scans, as in ``lstm_scan``; ``unroll`` is
+    accepted and ignored.
     """
     del unroll
+    if _on_kernel(params, Yt):
+        return _lstm_scan_kernel(params, h0, c0, Yt).transpose(1, 2)
     if remat is None:
         remat = Yt.numel() * 4 > _PRE_BUDGET_ELEMS
     if remat:
